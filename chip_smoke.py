@@ -17,10 +17,26 @@ Phases, each of which fails the run (nonzero exit, no result line):
    PoaBatch packs them; a window with an empty first read is refused before
    any launch. Kernel times are CUDA events around the launch alone, not the
    wrapper's input checks.
-3. POA main path: all covid windows through ``get_multi_batch_sizes`` and
-   ``PoaBatch(device="cuda")``; every status is success, every consensus
-   equals its golden line, the kernel was launched and the plain chain was
-   not called.
+2b. the five lockstep kernels (``ops/poa_lockstep_cuda.py``) vs their
+   plain versions (``poa/lockstep_plain.py``) on the card, read by read:
+   each phase's kernel and plain version on clones of one graph state must
+   leave equal outputs (codes, best_i, ag/ar/klen, cons/cov/length/err)
+   and equal whole states; sets: random unit and weighted windows, a ring
+   of D = 4 (status 5), 16 reads at high error (edge lists, 6), the node
+   cap (1), and the first 256 windows of the largest covid bucket in their
+   first 4 reads.
+3. POA main paths, each with every count set to 0 just before and read just
+   after: (a) the default path, all covid windows through
+   ``get_multi_batch_sizes`` and ``PoaBatch(device="cuda")``, which takes
+   the lockstep tier for bins of 64 windows or more and the per-window
+   kernel for the rest and for the tier's re-runs: every status success,
+   every consensus equal to its golden line, all six kernels launched, no
+   plain version called; it prints the tier counts (served / overflow /
+   unserved), the wall and windows/s; (b) slice 1's path, the same windows
+   through ``poa_batch_consensus(..., use_lockstep=False)`` per bin: golden,
+   the per-window kernel alone, its wall and windows/s; then each path once
+   under ``torch.profiler``: the device's busy share of the wall and the
+   device time by kernel.
 4. aligner kernels vs plain versions on the card, bit for bit: the Myers
    and banded NW forward passes and the RLE traceback (normal and small
    rcap) on seeded pairs at bands 32 to 1024; every walk consumes its
@@ -36,6 +52,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
    kernels too, and neither called a plain version.
 6. each aligner kernel alone at the main path's first-pass shapes, against
    its plain version (bit for bit) and its bound.
+6b. each lockstep kernel at the largest covid bucket's shapes: CUDA events
+   around every launch of the bucket's chain and device time by kernel
+   under ``torch.profiler``, with the work the run's data needs for the
+   bound; the plain versions against the kernels on the bucket's first 256
+   windows at read 1 (consensus after the whole build).
 7. a ``kernels`` JSON line with each kernel's launches, error against its
    plain version, times and bound.
 8. the last line: ``{"ok": true, "device": {...}}``.
@@ -113,6 +134,27 @@ def cuda_ms(fn, reps=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def profiled(fn):
+    """fn() once under torch.profiler: (device busy ms, wall s, device ms by
+    event name)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name: dict = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
+    return sum(by_name.values()), wall, by_name
 
 
 def nbytes(tensors):
@@ -442,19 +484,296 @@ def aligner_phases(dev, ops):
     return entries
 
 
+# -- the lockstep tier ------------------------------------------------------------
+
+LK_SOURCE = "genomeworks_tpu_torch/csrc/poa_lockstep.cu"
+LK_REPLACES = {
+    "nw_lockstep": "genomeworks_tpu/ops/poa_lockstep_pallas.py:365",
+    "tb_lockstep": "genomeworks_tpu/ops/poa_lockstep_pallas.py:538",
+    "add_lockstep": "genomeworks_tpu/ops/poa_lockstep_pallas.py:820",
+    "topsort_lockstep": "genomeworks_tpu/ops/poa_lockstep_pallas.py:960",
+    "consensus_lockstep": "genomeworks_tpu/ops/poa_lockstep_pallas.py:1206",
+}
+LK_DEVICE_NAME = {"nw_lockstep": "lk_nw_kernel", "tb_lockstep": "lk_tb_kernel",
+                  "add_lockstep": "lk_add_kernel", "topsort_lockstep": "lk_topsort_kernel",
+                  "consensus_lockstep": "lk_consensus_kernel"}
+# Bytes the walks touch, per step or node (each read once, each write once):
+# a traceback step reads a code byte and a row's node id, in-count, in-edge
+# and position and writes ag and ar (25 bytes); an add step reads ag and ar,
+# the read's base and weight, the node's base and five counts and one
+# in-list word, and writes about as much back (40); the sort reads a node's
+# in-count and writes its local count, position and rank (16) and per
+# out-edge reads the target and updates its count (12); consensus reads a
+# node's rank, in-count, score and writes score and predecessor (16), per
+# in-edge the source, weight and score (12), per emitted base its node,
+# coverage and counts and writes base and coverage (13). Each step or edge
+# costs about 12 int32 operations; the NW counts as nw_ops.
+TB_STEP_BYTES, ADD_STEP_BYTES = 25, 40
+NODE_BYTES, EDGE_BYTES, EMIT_BYTES = 16, 12, 13
+WALK_OPS = 12
+
+
+def lockstep_modules():
+    from genomeworks_tpu_torch.ops import poa_lockstep_cuda as lk
+    from genomeworks_tpu_torch.poa import lockstep, lockstep_plain
+
+    plains = {"nw_lockstep": lockstep_plain.nw_lockstep_plain,
+              "tb_lockstep": lockstep_plain.tb_lockstep_plain,
+              "add_lockstep": lockstep_plain.add_lockstep_plain,
+              "topsort_lockstep": lockstep_plain.topsort_lockstep_plain,
+              "consensus_lockstep": lockstep_plain.consensus_lockstep_plain}
+    kernels = {k.__name__: k for k in lk.KERNELS}
+    return lockstep, kernels, plains
+
+
+def clone_state(state):
+    return {k: v.clone() for k, v in state.items()}
+
+
+def bucket_tensors(windows, weights, N, dev):
+    from genomeworks_tpu_torch.poa.torch_poa import pack_windows
+
+    seqs, wts, lens, nseqs, _ = pack_windows(windows, weights, N)
+    return [torch.from_numpy(a).to(dev) for a in (seqs, wts, lens, nseqs)]
+
+
+def lockstep_compare(name, windows, weights, dev, max_nodes=None, D=None, reads=None):
+    """The chain of one bucket, read by read: each phase's kernel and plain
+    version on clones of one state must give equal outputs and equal whole
+    states (codes prefilled alike, so every byte compares). Returns the
+    statuses the kernels left."""
+    lockstep, kernels, plains = lockstep_modules()
+    N, D0, Lp, K = lockstep.bucket_plan(windows, max_nodes)
+    D = D or D0
+    seqs, wts, lens, nseqs = bucket_tensors(windows, weights, N, dev)
+    (seqs_t, wts_t, lens_t), state = lockstep.start_bucket(
+        seqs, wts if weights else None, lens, nseqs, N)
+    B, S, _ = seqs.shape
+    gap, mismatch, match = -8, -6, 8
+    last = S if reads is None else min(S, reads + 1)
+
+    def same(phase, k_out, p_out, ks, ps):
+        from genomeworks_tpu_torch.poa.torch_poa import STATE_KEYS
+
+        compare(f"{phase} on {name}", (*k_out, *(ks[k] for k in STATE_KEYS)),
+                (*p_out, *(ps[k] for k in STATE_KEYS)))
+
+    for s in range(1, last):
+        act = nseqs > s
+        w = None if wts_t is None else wts_t[s]
+        ks, ps = clone_state(state), clone_state(state)
+        ck = torch.full((B, N, Lp), 255, dtype=torch.uint8, device=dev)
+        cp = ck.clone()
+        bk = kernels["nw_lockstep"](ks, seqs_t[s], lens_t[s], act, ck, D, gap, mismatch, match)
+        bp = plains["nw_lockstep"](ps, seqs_t[s], lens_t[s], act, cp, D, gap, mismatch, match)
+        same("nw_lockstep", (ck, bk), (cp, bp), ks, ps)
+        tk = kernels["tb_lockstep"](ks, ck, bk, lens_t[s], act, K)
+        tp = plains["tb_lockstep"](ps, cp, bp, lens_t[s], act, K)
+        same("tb_lockstep", tk, tp, ks, ps)
+        kernels["add_lockstep"](ks, *tk, seqs_t[s], w, act)
+        plains["add_lockstep"](ps, *tp, seqs_t[s], w, act)
+        same("add_lockstep", (), (), ks, ps)
+        kernels["topsort_lockstep"](ks, act)
+        plains["topsort_lockstep"](ps, act)
+        same("topsort_lockstep", (), (), ks, ps)
+        state = ks
+    act = nseqs > 0
+    out = kernels["consensus_lockstep"](state, act)
+    compare(f"consensus_lockstep on {name}", out, plains["consensus_lockstep"](state, act))
+    statuses = sorted(set(out[3].tolist()))
+    print(f"check lockstep {name}: {B} windows, {last - 1} of {S - 1} reads, N={N} D={D} "
+          f"Lp={Lp} K={K}: every phase == plain, state and outputs; statuses {statuses}")
+    return set(statuses)
+
+
+def largest_covid_bucket(covid):
+    """The largest bucket the lockstep tier runs on the covid workload as
+    PoaBatch bins it: (windows, plan, bin config)."""
+    from genomeworks_tpu_torch.poa import BandMode, get_multi_batch_sizes
+
+    lockstep = lockstep_modules()[0]
+    best = None
+    for cfg, wids in zip(*get_multi_batch_sizes(covid, band_mode=BandMode.full_band)):
+        if len(wids) < 64:
+            continue
+        ws = [covid[i] for i in wids]
+        for edge, idxs in lockstep._bucket_windows([max(len(s) for s in w) for w in ws]):
+            sub = [ws[i] for i in idxs]
+            plan = None if edge is None else lockstep.bucket_plan(sub, cfg.max_nodes_per_graph)
+            if plan is not None and (best is None or len(sub) > len(best[0])):
+                best = (sub, plan, cfg)
+    return best
+
+
+def lockstep_work(t, plan, dev):
+    """The chain of a bucket through the kernels, counting what each phase's
+    data needs and timing each launch with CUDA events. Returns (work
+    counts, event ms per kernel, launches per kernel, consensus outputs)."""
+    lockstep, kernels, _ = lockstep_modules()
+    seqs, wts, lens, nseqs = t
+    N, D, Lp, K = plan
+    B, S, _ = seqs.shape
+    (seqs_t, wts_t, lens_t), st = lockstep.start_bucket(seqs, wts, lens, nseqs, N)
+    codes = torch.empty((B, N, Lp), dtype=torch.uint8, device=dev)
+    n_idx = torch.arange(N, device=dev)[None, :]
+    c: dict = {}
+    ms = dict.fromkeys(kernels, 0.0)
+    launches = dict.fromkeys(kernels, 0)
+
+    def add(key, val):
+        c[key] = c.get(key, 0) + int(val)
+
+    def timed(name, fn):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        ms[name] += e0.elapsed_time(e1)
+        launches[name] += 1
+        return out
+
+    def graph_counts(ok, prefix):
+        nc = torch.where(ok, st["node_count"], 0).to(torch.int64)
+        in_graph = n_idx < nc[:, None]
+        add(f"{prefix}_nodes", nc.sum())
+        add(f"{prefix}_in_edges", torch.where(in_graph, st["in_count"], 0).sum())
+        add(f"{prefix}_out_edges", torch.where(in_graph, st["out_count"], 0).sum())
+        return nc, in_graph
+
+    for s in range(1, S):
+        act = nseqs > s
+        ok = act & (st["error"] == 0)
+        nc, in_graph = graph_counts(ok, "nw")
+        rl1 = torch.where(ok, lens_t[s] + 1, 0).to(torch.int64)
+        npred = torch.where(in_graph, st["in_count"].clamp(min=1), 0).sum(dim=1)
+        add("cells", (nc * rl1).sum())
+        add("pred_cells", (npred * rl1).sum())
+        add("read_bytes", torch.where(ok, lens_t[s], 0).sum())
+        w = None if wts_t is None else wts_t[s]
+        best = timed("nw_lockstep", lambda: kernels["nw_lockstep"](
+            st, seqs_t[s], lens_t[s], act, codes, D, -8, -6, 8))
+        ag, ar, klen = timed("tb_lockstep", lambda: kernels["tb_lockstep"](
+            st, codes, best, lens_t[s], act, K))
+        add("walk_steps", klen.sum())
+        timed("add_lockstep", lambda: kernels["add_lockstep"](st, ag, ar, klen, seqs_t[s], w, act))
+        graph_counts(act & (st["error"] == 0), "sort")
+        timed("topsort_lockstep", lambda: kernels["topsort_lockstep"](st, act))
+    graph_counts((nseqs > 0) & (st["error"] == 0), "cons")
+    out = timed("consensus_lockstep", lambda: kernels["consensus_lockstep"](st, nseqs > 0))
+    add("emitted", out[2].sum())
+    return c, ms, launches, out
+
+
+def lockstep_bounds(c):
+    """(bytes, int32 ops) each kernel's work needs, from the run's counts."""
+    return {
+        "nw_lockstep": (c["cells"] + c["read_bytes"] + 16 * c["nw_nodes"]
+                        + 8 * c["nw_in_edges"],
+                        nw_ops({"cells": c["cells"], "pred_cells": c["pred_cells"]})),
+        "tb_lockstep": (TB_STEP_BYTES * c["walk_steps"], WALK_OPS * c["walk_steps"]),
+        "add_lockstep": (ADD_STEP_BYTES * c["walk_steps"], WALK_OPS * c["walk_steps"]),
+        "topsort_lockstep": (NODE_BYTES * c["sort_nodes"] + EDGE_BYTES * c["sort_out_edges"],
+                             WALK_OPS * (c["sort_nodes"] + c["sort_out_edges"])),
+        "consensus_lockstep": (NODE_BYTES * c["cons_nodes"] + EDGE_BYTES * c["cons_in_edges"]
+                               + EMIT_BYTES * c["emitted"],
+                               WALK_OPS * (c["cons_nodes"] + c["cons_in_edges"])),
+    }
+
+
+def lockstep_timing(covid, dev):
+    """Each lockstep kernel at the shapes of the largest covid bucket: CUDA
+    events around every launch of the bucket's chain, and the device time
+    by kernel under torch.profiler; the plain versions on the first 256
+    windows of the bucket at read 1 (and consensus after the whole build),
+    with the kernels on the same inputs. Returns the kernels line's timing
+    fields by name."""
+    lockstep, kernels, plains = lockstep_modules()
+    windows, plan, cfg = largest_covid_bucket(covid)
+    N, D, Lp, K = plan
+    ones = [[np.ones(len(s), np.int32) for s in w] for w in windows]
+    t = bucket_tensors(windows, ones, N, dev)
+    B, S, _ = t[0].shape
+    shape = f"the largest covid bucket: {B} windows, {S} reads, N={N} D={D} Lp={Lp} K={K}"
+    lockstep_work(t, plan, dev)  # warm
+    c, ev_ms, launches, out = lockstep_work(t, plan, dev)
+    busy, prof_wall, by_name = profiled(lambda: lockstep.run_bucket(*t, N, D, Lp, K, -8, -6, 8))
+    dev_ms = {name: sum(ms for key, ms in by_name.items() if kname in key)
+              for name, kname in LK_DEVICE_NAME.items()}
+    print(f"time lockstep chain on {shape} (bin {cfg.max_sequence_size}): statuses "
+          f"{sorted(set(out[3].tolist()))}; profiled run {prof_wall * 1e3:.3f} ms wall, device "
+          f"busy {busy:.3f} ms; work {c}")
+
+    # the plain versions (and the kernels again) on a subset at read 1
+    sub = [x[:256].contiguous() for x in t]
+    (seqs_t, wts_t, lens_t), st0 = lockstep.start_bucket(*sub, N)
+    act = sub[3] > 1
+    plain_ms, sub_ms = {}, {}
+
+    def both(name, st_in, run):
+        """Kernel and plain version on clones of ``st_in``, timed and
+        compared; returns the kernel's outputs and state."""
+        ks, ps = clone_state(st_in), clone_state(st_in)
+        sub_ms[name], k_out = cuda_ms(lambda: run(kernels[name], ks))
+        plain_ms[name], p_out = cuda_ms(lambda: run(plains[name], ps))
+        compare(f"{name} timed on the subset", (*k_out, *ks.values()), (*p_out, *ps.values()))
+        return k_out, ks
+
+    def nw(fn, st):
+        codes = torch.full((256, N, Lp), 255, dtype=torch.uint8, device=dev)
+        return codes, fn(st, seqs_t[1], lens_t[1], act, codes, D, -8, -6, 8)
+
+    (codes, best), st1 = both("nw_lockstep", st0, nw)
+    tb, st2 = both("tb_lockstep", st1, lambda fn, st: fn(st, codes, best, lens_t[1], act, K))
+    _, st3 = both("add_lockstep", st2,
+                  lambda fn, st: (fn(st, *tb, seqs_t[1], wts_t[1], act), ())[1])
+    both("topsort_lockstep", st3, lambda fn, st: (fn(st, act), ())[1])
+    st = clone_state(st0)
+    for s in range(1, S):
+        a = sub[3] > s
+        b_i = kernels["nw_lockstep"](st, seqs_t[s], lens_t[s], a, codes, D, -8, -6, 8)
+        kernels["add_lockstep"](st, *kernels["tb_lockstep"](st, codes, b_i, lens_t[s], a, K),
+                                seqs_t[s], wts_t[s], a)
+        kernels["topsort_lockstep"](st, a)
+    both("consensus_lockstep", st, lambda fn, st_: fn(st_, sub[3] > 0))
+    print("time lockstep kernels vs plain on the first 256 windows of the bucket (read 1; "
+          "consensus after the whole build): " + "; ".join(
+              f"{n} kernel {sub_ms[n]:.3f} ms, plain {plain_ms[n]:.1f} ms" for n in kernels))
+
+    fields = {}
+    for name, (nbytes_, ops) in lockstep_bounds(c).items():
+        n = launches[name]
+        t_bytes = nbytes_ / HBM_BYTES_PER_S * 1e3 / n
+        t_ops = ops / SCALAR_OPS_PER_S * 1e3 / n
+        ms = (dev_ms[name] or ev_ms[name]) / n
+        print(f"{name}: {n} launches on the bucket; device {dev_ms[name]:.3f} ms, events "
+              f"{ev_ms[name]:.3f} ms in all; bound {nbytes_} bytes -> {t_bytes * n:.6f} ms, "
+              f"{ops} int32 ops -> {t_ops * n:.6f} ms in all")
+        fields[name] = {
+            "ms": ms, "plain_ms": plain_ms[name], "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "timed_on": f"{shape}: ms and bound_ms per launch (mean of the bucket's "
+                        f"{n}); plain_ms on its first 256 windows at read 1",
+            "subset_ms": sub_ms[name], "bucket_ms": dev_ms[name] or ev_ms[name],
+            "bucket_launches": n,
+        }
+    return fields
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from genomeworks_tpu_torch.ops import (
-        _build, banded_nw_cuda, myers_banded_cuda, poa_cuda, rle_traceback_cuda,
+        _build, banded_nw_cuda, myers_banded_cuda, poa_cuda, poa_lockstep_cuda,
+        rle_traceback_cuda,
     )
 
     aligner_ops = {m.__name__.rsplit(".", 1)[1]: m
                    for m in (myers_banded_cuda, banded_nw_cuda, rle_traceback_cuda)}
     from genomeworks_tpu_torch.ops.poa_cuda import poa_consensus_cuda
     from genomeworks_tpu_torch.poa import BandMode, OutputType, PoaBatch, StatusType
-    from genomeworks_tpu_torch.poa.torch_poa import poa_consensus_plain
+    from genomeworks_tpu_torch.poa.torch_poa import poa_batch_consensus, poa_consensus_plain
     from genomeworks_tpu_torch.poa.windows import (
         get_multi_batch_sizes, load_golden_lines, load_window_file,
     )
@@ -469,7 +788,8 @@ def main() -> int:
     print(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # -- 1. build -------------------------------------------------------------
-    sources = [poa_cuda.SOURCE, *(m.SOURCE for m in aligner_ops.values())]
+    sources = [poa_cuda.SOURCE, poa_lockstep_cuda.SOURCE,
+               *(m.SOURCE for m in aligner_ops.values())]
     t0 = time.perf_counter()
     _build.build_all(sources)
     print(f"build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s (in parallel)")
@@ -549,46 +869,117 @@ def main() -> int:
         fail("a window with an empty first read reached the kernel")
     print("check empty first read: refused before any launch")
 
-    # -- 3. main path ---------------------------------------------------------
-    def run_main(windows):
+    # -- 2b. the lockstep kernels vs their plain versions ------------------------
+    lockstep, lk_kernels, lk_plains = lockstep_modules()
+    rng = np.random.default_rng(2026)
+    lk_unit = random_windows(rng, 32, (60, 200), 0.05, 0.05)
+    lk_weighted = random_windows(rng, 32, (60, 200), 0.05, 0.05)
+    lk_wts = [[rng.integers(1, 9, size=len(s)).astype(np.int32) for s in w] for w in lk_weighted]
+    big, _, big_cfg = largest_covid_bucket(covid)
+    lk_statuses = set()
+    for name, ws, wt, kw in (
+        ("random unit", lk_unit, None, {}),
+        ("random weighted", lk_weighted, lk_wts, {}),
+        # a ring of 4 rows: predecessors farther away are code 5
+        ("random, D = 4", random_windows(rng, 32, (60, 120), 0.05, 0.05), None, {"D": 4}),
+        # 16 reads at about 30 % error: edge lists overflow, code 6
+        ("16 reads at 30 % error", random_windows(rng, 16, (40, 50), 0.15, 0.15, reads=(16, 16)),
+         None, {}),
+        # the node cap N = 128 against 12-16 reads at 25 % error: code 1
+        ("random, N = 128", random_windows(rng, 16, (45, 60), 0.15, 0.1, reads=(12, 16)), None,
+         {}),
+        (f"covid bin {big_cfg.max_sequence_size}, largest bucket, first 256 windows", big[:256],
+         [[np.ones(len(s), np.int32) for s in w] for w in big[:256]],
+         {"max_nodes": big_cfg.max_nodes_per_graph, "reads": 4}),
+    ):
+        lk_statuses |= lockstep_compare(name, ws, wt, dev, **kw)
+    if not {0, 1, 5, 6} <= lk_statuses:
+        fail(f"the lockstep check sets did not reach statuses 0, 1, 5 and 6 "
+             f"(got {sorted(lk_statuses)})")
+
+    # -- 3. the main paths --------------------------------------------------------
+    poa_kernels = {"poa_consensus_cuda": poa_consensus_cuda, **lk_kernels}
+    poa_plains = (poa_consensus_plain, *lk_plains.values())
+
+    def counted(fn):
+        """fn() with every count set to 0 just before: (its result, wall s,
+        launches by kernel, plain-version calls, tier counts)."""
+        for k in poa_kernels.values():
+            k.launches = 0
+        for p in poa_plains:
+            p.calls = 0
+        lockstep.reset_tier_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return (out, wall, {n: k.launches for n, k in poa_kernels.items()},
+                sum(p.calls for p in poa_plains), dict(lockstep.tier_stats))
+
+    def by_bin(windows, run):
         cfgs, groups = get_multi_batch_sizes(windows, band_mode=BandMode.full_band)
         out = {}
         for cfg, wids in zip(cfgs, groups):
-            batch = PoaBatch(cfg, OutputType.consensus, device="cuda")
-            for wid in wids:
-                st, _ = batch.add_poa_group(windows[wid])
-                if st != StatusType.success:
-                    fail(f"add window {wid}: {st!r}")
-            batch.generate_poa()
-            cons, _, sts = batch.get_consensus()
-            for wid, c, s in zip(wids, cons, sts):
+            for wid, c, s in zip(wids, *run(cfg, [windows[i] for i in wids])):
                 out[wid] = (c, s)
         return [out[i] for i in range(len(windows))]
 
-    run_main(covid[:64])  # warm: library loaded, allocator primed
-    poa_cuda.poa_consensus_cuda.launches = 0
-    poa_consensus_plain.calls = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    results = run_main(covid)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = poa_cuda.poa_consensus_cuda.launches
-    plain_calls = poa_consensus_plain.calls
-    bad = [i for i, (c, s) in enumerate(results) if s != StatusType.success]
-    if bad:
-        fail(f"{len(bad)} covid windows without success, first {bad[:5]}")
-    diff = [i for i, ((c, _), g) in enumerate(zip(results, golden)) if c != g]
-    if diff:
-        fail(f"{len(diff)} covid windows differ from the golden, first {diff[:5]}")
-    if launches <= 0:
-        fail("the main path launched no poa_consensus kernel")
-    if plain_calls != 0:
-        fail(f"the main path called the plain chain {plain_calls} times")
-    print(f"main path: {len(covid)} covid windows through PoaBatch(device='cuda'): "
-          f"all success, all equal the golden; {wall:.3f} s wall, "
-          f"{len(covid) / wall:.1f} windows/s, {launches} kernel launches, "
-          f"{plain_calls} plain-chain calls")
+    def poa_batch(cfg, ws):
+        """The default path: PoaBatch, the lockstep tier for bins of 64
+        windows or more, the per-window kernel for the rest and the re-runs."""
+        batch = PoaBatch(cfg, OutputType.consensus, device="cuda")
+        for w in ws:
+            if batch.add_poa_group(w)[0] != StatusType.success:
+                fail("add_poa_group refused a covid window")
+        batch.generate_poa()
+        cons, _, sts = batch.get_consensus()
+        return cons, [0 if s == StatusType.success else s for s in sts]
+
+    def per_window(cfg, ws):
+        """Slice 1's path: every window through the per-window kernel."""
+        ones = [[np.ones(len(s), np.int32) for s in w] for w in ws]
+        cons, _, sts = poa_batch_consensus(ws, max_nodes=cfg.max_nodes_per_graph, weights=ones,
+                                           device="cuda", use_lockstep=False)
+        return cons, sts
+
+    def check_golden(label, results):
+        bad = [i for i, (c, s) in enumerate(results) if s != 0]
+        if bad:
+            fail(f"{label}: {len(bad)} covid windows without success, first {bad[:5]}")
+        diff = [i for i, ((c, _), g) in enumerate(zip(results, golden)) if c != g]
+        if diff:
+            fail(f"{label}: {len(diff)} covid windows differ from the golden, first {diff[:5]}")
+
+    by_bin(covid[:1024], poa_batch)  # warm: libraries loaded, allocator primed
+    by_bin(covid[:64], per_window)
+    results, wall, launches, plain_calls, tiers = counted(lambda: by_bin(covid, poa_batch))
+    check_golden("default path", results)
+    if min(launches.values()) <= 0:
+        fail(f"the default path did not launch every kernel: {launches}")
+    if plain_calls:
+        fail(f"the default path called a plain version {plain_calls} times")
+    print(f"main path (default: lockstep tier): {len(covid)} covid windows through "
+          f"PoaBatch(device='cuda'): all success, all equal the golden; {wall:.3f} s wall, "
+          f"{len(covid) / wall:.1f} windows/s; tier counts {tiers}; launches {launches} (the "
+          f"per-window kernel's are its bins under 64 windows and the re-runs); "
+          f"{plain_calls} plain-version calls")
+    results, wall1, launches1, plain1, tiers1 = counted(lambda: by_bin(covid, per_window))
+    check_golden("use_lockstep=False path", results)
+    if launches1["poa_consensus_cuda"] <= 0 or sum(launches1.values()) != \
+            launches1["poa_consensus_cuda"] or plain1 or sum(tiers1.values()):
+        fail(f"the use_lockstep=False path launched {launches1}, called a plain version "
+             f"{plain1} times, counted tiers {tiers1}")
+    print(f"main path (use_lockstep=False, slice 1's): {len(covid)} covid windows through "
+          f"poa_batch_consensus per bin: all success, all equal the golden; {wall1:.3f} s "
+          f"wall, {len(covid) / wall1:.1f} windows/s; launches {launches1}; {plain1} "
+          f"plain-version calls")
+    for label, run in (("default path", poa_batch), ("use_lockstep=False path", per_window)):
+        busy_ms, prof_wall, by_name = profiled(lambda: by_bin(covid, run))
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        print(f"profiled {label}: {prof_wall * 1e3:.3f} ms wall under torch.profiler, device "
+              f"busy {busy_ms:.3f} ms ({100 * busy_ms / (prof_wall * 1e3):.2f} % of the wall); "
+              + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top))
 
     # kernel alone on the whole workload, packed per bin as the main path does
     cfgs, groups = get_multi_batch_sizes(covid, band_mode=BandMode.full_band)
@@ -607,6 +998,9 @@ def main() -> int:
     # -- 4-6. the aligner -----------------------------------------------------
     aligner_entries = aligner_phases(dev, aligner_ops)
 
+    # -- 6b. the lockstep kernels alone at the largest covid bucket's shapes -----
+    lk_fields = lockstep_timing(covid, dev)
+
     # -- 7. kernels line ------------------------------------------------------
     t_bytes = timed["bytes"] / HBM_BYTES_PER_S * 1e3
     t_ops = timed["ops"] / SCALAR_OPS_PER_S * 1e3
@@ -619,7 +1013,7 @@ def main() -> int:
         "source": SOURCE,
         "replaces": REPLACES,
         "state": "ported",
-        "launches": launches,
+        "launches": launches["poa_consensus_cuda"],
         "max_abs_err": max_err,
         "ms": timed["ms"],
         "plain_ms": timed["plain_ms"],
@@ -628,9 +1022,23 @@ def main() -> int:
         "library_ms": None,
         "timed_on": "covid windows 0-63, packed per bin as PoaBatch packs them",
         "covid_kernel_ms": covid_ms,
+        "main_path_s": wall1,
+        "windows_per_s": len(covid) / wall1,
+        "launches_use_lockstep_false": launches1["poa_consensus_cuda"],
+    }, *({
+        "name": name,
+        "route": "cuda",
+        "source": LK_SOURCE,
+        "replaces": LK_REPLACES[name],
+        "state": "ported",
+        "launches": launches[name],
+        "max_abs_err": 0,
+        "library_ms": None,
+        **lk_fields[name],
         "main_path_s": wall,
         "windows_per_s": len(covid) / wall,
-    }, *aligner_entries]}
+        "tier_counts": tiers,
+    } for name in LK_REPLACES), *aligner_entries]}
     print(json.dumps(kernels))
     # -- 8. result --------------------------------------------------------------
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """Batched partial-order alignment, full-band consensus (reference: cudapoa).
 
 The PyTorch counterpart of genomeworks_tpu.poa: the NumPy oracle, the
-batched PyTorch chain with its CUDA kernel, the ``PoaBatch`` surface and the
-window helpers.
+batched PyTorch chain with its CUDA kernel, the lockstep tier with its five
+CUDA kernels, the ``PoaBatch`` surface and the window helpers.
 """
 
 from genomeworks_tpu_torch.poa.cpu_reference import (
@@ -19,6 +19,12 @@ from genomeworks_tpu_torch.poa.cpu_reference import (
     generate_msa,
 )
 from genomeworks_tpu_torch.poa.torch_poa import poa_batch_consensus
+from genomeworks_tpu_torch.poa.lockstep import (
+    lockstep_plan,
+    poa_batch_consensus_lockstep,
+    reset_tier_stats,
+    tier_stats,
+)
 from genomeworks_tpu_torch.poa.batch import (
     BandMode,
     BatchConfig,

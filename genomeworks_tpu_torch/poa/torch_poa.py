@@ -165,7 +165,9 @@ def topsort_batched(state, active):
     pos_of = torch.where(is_seed, seed_rank, -1)
 
     R = int(torch.where(active, nc, 0).max()) if B else 0
-    eo = max(1, int(torch.where(n_idx < nc[:, None], st["out_count"], 0).max())) if R else 1
+    live = active[:, None] & (n_idx < nc[:, None])
+    eo = min(st["out_edges"].shape[2],
+             max(1, int(torch.where(live, st["out_count"], 0).max()))) if R else 1
     out_edges = st["out_edges"][:, :, :eo]
     e_idx = torch.arange(eo, device=dev, dtype=torch.int32)[None, :]
     bbe = bi[:, None].expand(B, eo)
@@ -203,6 +205,21 @@ def nw_batched(state, read, read_len, active, gap: int, mismatch: int,
     ``work``, when given, accumulates the cells this call's data needs:
     ``cells`` (graph rows x read columns) and ``pred_cells`` (the same,
     counted once per predecessor row read)."""
+    codes, best_i = nw_forward(state, read, read_len, active, gap, mismatch, match, work)
+    B, R, C = codes.shape
+    bi = torch.arange(B, device=codes.device)
+
+    def code_at(i, j):
+        return codes[bi, i.clamp(0, R - 1).long(), j.clamp(0, C - 1).long()].to(torch.int32)
+
+    return traceback(state, code_at, best_i, read_len, active, (R - 1) + (C - 1))
+
+
+def nw_forward(state, read, read_len, active, gap: int, mismatch: int,
+               match: int, work: dict | None = None):
+    """The forward pass of :func:`nw_batched`: returns (codes (B, N+1, L+1)
+    int16, the priority code of every cell, row 0 unused; best_i (B,), the
+    first sink row with the highest score at column ``read_len``)."""
     st = state
     B, N = st["nodes"].shape
     E = st["in_edges"].shape[2]
@@ -263,8 +280,21 @@ def nw_batched(state, read, read_len, active, gap: int, mismatch: int,
     sorted_oc = st["out_count"].gather(1, st["sorted"].clamp(0, N - 1).long())
     sink = (sorted_oc == 0) & (n_idx + 1 <= st["node_count"][:, None])
     best_i = torch.where(sink, col, NEG).argmax(dim=1).to(torch.int32) + 1
+    return codes, best_i
 
-    K = N + L
+
+def traceback(state, code_at, best_i, read_len, active, K: int):
+    """Pointer walk over priority codes from (best_i, read_len) to (0, 0),
+    for the windows in ``active``; ``code_at(i, j)`` gives the (B,) int32
+    codes of graph row i (1-based, topological order) at column j. Returns
+    (ag (B, K), ar (B, K), aln_len (B,), failed (B,)) as :func:`nw_batched`
+    does; a walk longer than K keeps its first K moves."""
+    st = state
+    B, N = st["nodes"].shape
+    E = st["in_edges"].shape[2]
+    HORIZ = 2 * E
+    dev = best_i.device
+    bi = torch.arange(B, device=dev)
     ag = torch.full((B, K), -1, dtype=torch.int32, device=dev)
     ar = torch.full((B, K), -1, dtype=torch.int32, device=dev)
     i = torch.where(active, best_i, 0)
@@ -274,8 +304,7 @@ def nw_batched(state, read, read_len, active, gap: int, mismatch: int,
         a_t = active & ((i != 0) | (j != 0))
         if not bool(a_t.any()):
             break
-        code = codes[bi, i.clamp(0, N).long(), j.clamp(0, L).long()].to(torch.int32)
-        code = torch.where(i == 0, HORIZ, code)
+        code = torch.where(i == 0, HORIZ, code_at(i, j))
         is_horiz = code == HORIZ
         is_diag = code < E
         e = torch.where(is_horiz, 0, code % E).long()
@@ -702,16 +731,29 @@ def poa_batch_consensus(
     max_alignments: int = MAX_NODE_ALIGNMENTS,
     weights: list[list[np.ndarray]] | None = None,
     device=None,
+    use_lockstep: bool | None = None,
 ) -> tuple[list[str], list[np.ndarray], list[int]]:
     """Batched full-band POA consensus over windows (lists of sequences).
     Returns (consensus list, coverage list, status list; 0 = success) like
-    jax_poa:1609. ``device=None`` means CUDA: the windows go through the
-    CUDA kernel at the caller's full caps (N = ``max_nodes``, default
-    3 * longest sequence; E, A), and a nonzero status is final. On
-    ``device="cpu"`` they go through the plain chain."""
+    jax_poa:1609. ``device=None`` means CUDA.
+
+    With ``use_lockstep`` the windows first go through the lockstep tier
+    (``poa/lockstep.py``); every window it does not finish with status 0 is
+    re-run here without it. ``None`` chooses the tier as jax_poa:1630-1640
+    does, with the CUDA card in the TPU's place: on a CUDA device, for 64
+    windows or more, when ``max_edges >= 7`` and ``max_alignments >= 8``.
+    Without it the windows go through the per-window CUDA kernel at the
+    caller's full caps (N = ``max_nodes``, default 3 * longest sequence;
+    E, A), whose nonzero status is final. On ``device="cpu"`` each tier
+    runs its plain version. A failed build or launch raises."""
     from genomeworks_tpu_torch.ops.poa_cuda import poa_consensus_cuda
 
     dev = resolve_device(device)
+    if use_lockstep is None:
+        use_lockstep = lockstep_by_default(dev, len(windows), max_edges, max_alignments)
+    if use_lockstep:
+        return _consensus_lockstep_tier(windows, gap, mismatch, match, max_nodes, max_edges,
+                                        max_alignments, weights, dev)
     seqs, wts, lens, nseqs, N = pack_windows(windows, weights, max_nodes)
     cons, cov, length, err = poa_consensus_cuda(
         torch.from_numpy(seqs).to(dev), torch.from_numpy(wts).to(dev),
@@ -735,4 +777,40 @@ def poa_batch_consensus(
             out_cons.append(cons[b, :k][::-1].tobytes().decode("latin1"))
             out_cov.append(cov[b, :k][::-1].copy())
             out_status.append(0)
+    return out_cons, out_cov, out_status
+
+
+def lockstep_by_default(dev, n_windows: int, max_edges: int, max_alignments: int) -> bool:
+    """``use_lockstep=None``'s choice (jax_poa:1634-1640, the CUDA card in
+    the TPU's place)."""
+    return (torch.device(dev).type == "cuda" and n_windows >= 64 and max_edges >= 7
+            and max_alignments >= 8)
+
+
+def _consensus_lockstep_tier(windows, gap, mismatch, match, max_nodes, max_edges,
+                             max_alignments, weights, dev):
+    """The lockstep tier, then the per-window tier for every window it did
+    not finish with status 0 (jax_poa:1641-1674, without its fallback on a
+    failed tier); counts the windows in ``lockstep.tier_stats``. The
+    default node cap is fixed from the whole batch first, so that neither
+    the plan nor the re-run of a subset sees another N than the per-window
+    tier would give these windows."""
+    from genomeworks_tpu_torch.poa import lockstep
+
+    if max_nodes is None:
+        max_nodes = 3 * max(len(s) for w in windows for s in w)
+    out_cons, out_cov, out_status = lockstep.poa_batch_consensus_lockstep(
+        windows, gap, mismatch, match, weights=weights, max_nodes=max_nodes, device=dev)
+    redo = [b for b, st in enumerate(out_status) if st != 0]
+    unserved = sum(out_status[b] == lockstep.UNSERVED for b in redo)
+    lockstep.tier_stats["lockstep_windows"] += len(windows) - len(redo)
+    lockstep.tier_stats["lockstep_overflow_windows"] += len(redo) - unserved
+    lockstep.tier_stats["lockstep_unserved_windows"] += unserved
+    if redo:
+        r_cons, r_cov, r_st = poa_batch_consensus(
+            [windows[b] for b in redo], gap, mismatch, match, max_nodes, max_edges,
+            max_alignments, [weights[b] for b in redo] if weights else None, device=dev,
+            use_lockstep=False)
+        for i, b in enumerate(redo):
+            out_cons[b], out_cov[b], out_status[b] = r_cons[i], r_cov[i], r_st[i]
     return out_cons, out_cov, out_status

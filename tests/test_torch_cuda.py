@@ -89,6 +89,125 @@ def test_kernel_rejects_empty_first_read_on_gpu():
     assert poa_consensus_cuda.launches == launches
 
 
+def _lockstep_chain(windows, weights, D=None):
+    """One bucket through the lockstep phases read by read, each kernel and
+    its plain version on clones of one state; asserts every output and the
+    whole state equal, and returns the statuses."""
+    from genomeworks_tpu_torch.ops import poa_lockstep_cuda as lk
+    from genomeworks_tpu_torch.poa import lockstep, lockstep_plain as lp
+
+    N, D0, Lp, K = lockstep.bucket_plan(windows)
+    D = D or D0
+    seqs, wts, lens, nseqs, _ = torch_poa.pack_windows(windows, weights, N)
+    seqs, wts, lens, nseqs = (torch.from_numpy(a).cuda() for a in (seqs, wts, lens, nseqs))
+    (seqs_t, wts_t, lens_t), st = lockstep.start_bucket(
+        seqs, wts if weights else None, lens, nseqs, N)
+    B, S, _ = seqs.shape
+
+    def same(a, b):
+        torch.cuda.synchronize()
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+        for k in torch_poa.STATE_KEYS:
+            assert torch.equal(ks[k], ps[k]), k
+
+    for s in range(1, S):
+        act = nseqs > s
+        w = None if wts_t is None else wts_t[s]
+        ks = {k: v.clone() for k, v in st.items()}
+        ps = {k: v.clone() for k, v in st.items()}
+        ck = torch.full((B, N, Lp), 255, dtype=torch.uint8, device="cuda")
+        cp = ck.clone()
+        bk = lk.nw_lockstep(ks, seqs_t[s], lens_t[s], act, ck, D, -8, -6, 8)
+        bp = lp.nw_lockstep_plain(ps, seqs_t[s], lens_t[s], act, cp, D, -8, -6, 8)
+        same((ck, bk), (cp, bp))
+        tk = lk.tb_lockstep(ks, ck, bk, lens_t[s], act, K)
+        tp = lp.tb_lockstep_plain(ps, cp, bp, lens_t[s], act, K)
+        same(tk, tp)
+        lk.add_lockstep(ks, *tk, seqs_t[s], w, act)
+        lp.add_lockstep_plain(ps, *tp, seqs_t[s], w, act)
+        same((), ())
+        lk.topsort_lockstep(ks, act)
+        lp.topsort_lockstep_plain(ps, act)
+        same((), ())
+        st = ks
+    out = lk.consensus_lockstep(st, nseqs > 0)
+    ref = lp.consensus_lockstep_plain(st, nseqs > 0)
+    torch.cuda.synchronize()
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    return set(out[3].tolist())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "case", ["unit", "weighted", "small-ring", "edge-cap", "node-cap"])
+def test_lockstep_kernels_match_plain_on_gpu(case):
+    """Each of the five lockstep kernels equals its plain version, outputs
+    and whole state, read by read; the capped sets reach their codes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc")
+    rng = np.random.default_rng(11)
+    windows, weights = {
+        "unit": lambda: (_windows(B=32, Lb=80, seed=7, rate=0.05, reads=12)[0], None),
+        "weighted": lambda: _windows(B=32, Lb=80, seed=8, rate=0.05, reads=12),
+        "small-ring": lambda: (_windows(B=32, Lb=80, seed=9, rate=0.05, reads=8)[0], None),
+        # 15 reads with distinct 1-4 base insertions at one place: the base
+        # after it gets more in-edges than the lists hold
+        "edge-cap": lambda: ([[x + y] + [x + _random(rng, 1 + i % 4) + y for i in range(15)]
+                              for x, y in ((_random(rng, 20), _random(rng, 20))
+                                           for _ in range(8))], None),
+        # 15 reads with a quarter of their bases substituted: over 128 nodes
+        "node-cap": lambda: ([[t] + [_substituted(rng, t, 0.25) for _ in range(15)]
+                              for t in (_random(rng, 60) for _ in range(8))], None),
+    }[case]()
+    statuses = _lockstep_chain(windows, weights, D=4 if case == "small-ring" else None)
+    want = {"small-ring": 5, "edge-cap": 6, "node-cap": 1}.get(case, 0)
+    assert want in statuses
+
+
+def _covid_like(B):
+    """B windows of 12-16 reads of about 200 bp at 3 % error."""
+    return _windows(B=B, Lb=200, seed=B, rate=0.03, reads=16)[0]
+
+
+@pytest.mark.cuda
+def test_poa_batch_on_gpu_takes_the_lockstep_tier():
+    """PoaBatch(device="cuda") on 64 windows or more runs all five lockstep
+    kernels and calls no plain version; under 64 windows only the
+    per-window kernel runs. Both equal the per-window kernel's path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc")
+    from genomeworks_tpu_torch.ops import poa_lockstep_cuda as lk
+    from genomeworks_tpu_torch.poa import BatchConfig, PoaBatch, lockstep, lockstep_plain as lp
+
+    plains = (torch_poa.poa_consensus_plain, lp.nw_lockstep_plain, lp.tb_lockstep_plain,
+              lp.add_lockstep_plain, lp.topsort_lockstep_plain, lp.consensus_lockstep_plain)
+    for B in (64, 63):
+        windows = _covid_like(B)
+        for k in (poa_consensus_cuda, *lk.KERNELS):
+            k.launches = 0
+        calls = [p.calls for p in plains]
+        lockstep.reset_tier_stats()
+        batch = PoaBatch(BatchConfig(max_sequence_size=256), device="cuda")
+        for w in windows:
+            batch.add_poa_group(w)
+        batch.generate_poa()
+        cons, _, _ = batch.get_consensus()
+        torch.cuda.synchronize()
+        assert [p.calls for p in plains] == calls
+        if B >= 64:
+            assert all(k.launches > 0 for k in lk.KERNELS)
+            assert lockstep.tier_stats["lockstep_windows"] > 0
+        else:
+            assert sum(k.launches for k in lk.KERNELS) == 0 and poa_consensus_cuda.launches > 0
+            assert sum(lockstep.tier_stats.values()) == 0
+        ones = [[np.ones(len(s), np.int32) for s in w] for w in windows]
+        ref = torch_poa.poa_batch_consensus(windows, max_nodes=batch.batch_config.max_nodes_per_graph,
+                                            weights=ones, device="cuda", use_lockstep=False)
+        assert cons == ref[0]
+
+
 def _mutate(rng, s, rate):
     """Substitutions, deletions and 1-base insertions, each at ``rate``."""
     out = []
@@ -107,6 +226,10 @@ def _mutate(rng, s, rate):
 
 def _random(rng, n):
     return "".join("ACGT"[i] for i in rng.integers(0, 4, n))
+
+
+def _substituted(rng, s, rate):
+    return "".join("ACGT"[rng.integers(0, 4)] if rng.random() < rate else c for c in s)
 
 
 def _pairs(B, M, seed, rate):
