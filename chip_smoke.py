@@ -9,14 +9,26 @@ Phases, each of which fails the run (nonzero exit, no result line):
    (nvidia-smi); build every kernel of the port from csrc/, one nvcc per
    source, all started together, and print each kernel's registers and
    spills.
-2. POA kernel vs plain version on the card: ``poa_consensus_cuda`` and
-   ``torch_poa.poa_consensus_plain`` on the same CUDA tensors must give
-   exactly equal cons, cov, length and err, on seeded random windows (unit
-   and weighted, 2-16 reads, some driven into status 1 and 2 by small caps,
-   some with empty later reads) and on the first 64 covid windows packed as
-   PoaBatch packs them; a window with an empty first read is refused before
-   any launch. Kernel times are CUDA events around the launch alone, not the
-   wrapper's input checks.
+2. the full-band kernel (a warp per window) vs its plain versions:
+   ``poa_consensus_cuda`` and ``torch_poa.poa_consensus_plain`` on the same
+   inputs (the plain version on the card for the covid sets, where it is
+   timed, and on the host CPU for the others, one process per core) must
+   give exactly equal cons, cov, length and err, on
+   seeded random windows (unit and weighted, 2-16 reads, some driven into
+   status 1 and 2 by small caps, some with empty later reads), on the edge
+   sets of its warp layout (``window_edge_sets``: read lengths at a lane's
+   and a tile's edges, reads of 640 bases in two tiles, predecessors at the
+   shared ring's last distance and past it, lists past 32 slots, weights
+   0-9 with an empty later read, E = A = 100 and 130 with 16-bit codes,
+   reads of 2000 bases whose graph's sort and consensus scores do not fit
+   the shared memory, and of 2600 bases, where no score ring fits), each
+   of which must reach what it names, and on the first 64 covid windows
+   packed as PoaBatch packs them; its MSA and graph instantiations
+   (``poa_msa_cuda``, ``poa_graph_cuda``) on every one of those sets against
+   their plain versions run on the host CPU (one process per core); a window
+   with an empty first read is refused before any launch. Kernel times are
+   CUDA events around the launch alone, not the wrapper's input checks,
+   printed beside the block-per-window kernel's on the same covid windows.
 2b. the five lockstep kernels (``ops/poa_lockstep_cuda.py``) vs their
    plain versions (``poa/lockstep_plain.py``) on the card, read by read:
    each phase's kernel and plain version on clones of one graph state must
@@ -216,6 +228,188 @@ def compare(name, kernel_out, plain_out):
     if err != 0:
         fail(f"{name}: kernel differs from its plain version (max |diff| {err})")
     return err
+
+
+# -- the full band's warp layout (csrc/poa_consensus.cu poa_window_kernel) -------
+
+#: the full-band kernel's earlier version (a block of 128 threads per window),
+#: on the same sets: median ms of experiments/torch_poa_window_check.py on an
+#: H100 80GB HBM3 at 700 W, and its time on the whole covid workload
+EARLIER_FULL_MS = {"covid 0-63 bin 256": 18.9885, "covid 0-63 bin 512": 17.7690}
+EARLIER_COVID_MS = 141.367
+
+
+def window_cols(L):
+    """(columns a lane, columns a tile) of the full-band kernel for reads up
+    to L bases (launch_full in the source)."""
+    cpl = 9 if L + 1 <= 32 * 9 else 11
+    return cpl, 32 * cpl
+
+
+def graph_prefix_facts(job):
+    """Over the graphs a set's later reads align to (every window's read
+    prefixes, built by the plain chain on the CPU, in a worker process):
+    (key, the topological distances of predecessor rows, the longest
+    in-list, out-list and aligned list, the most nodes a graph that was
+    sorted after an add holds)."""
+    from genomeworks_tpu_torch.poa.torch_poa import build_windows_graphs
+
+    key, windows, N, E, A = job
+    prefixes = [w[:k] for w in windows for k in range(1, len(w))]
+    st, _ = build_windows_graphs(prefixes, max_nodes=N, max_edges=E, max_alignments=A,
+                                 device="cpu")
+    ok = st["error"] == 0
+    added = torch.tensor([len(p) > 1 for p in prefixes])  # a read was added and sorted
+    n = torch.arange(N)[None, :] < st["node_count"][:, None]
+    live = ok[:, None] & n
+    ic = torch.where(live, st["in_count"], 0)
+    e = torch.arange(E)[None, None, :] < ic[:, :, None]
+    pos = st["pos_of"]
+    src = st["in_edges"].clamp(0, N - 1).long()
+    d = pos[:, :, None] - pos.gather(1, src.flatten(1)).view(src.shape)
+    return (key, set(d[e].unique().tolist()), int(ic.max()),
+            int(torch.where(live, st["out_count"], 0).max()),
+            int(torch.where(live, st["al_count"], 0).max()),
+            int(torch.where(ok & added, st["node_count"], 0).max()))
+
+
+def consensus_plain_job(job):
+    """The full-band consensus's plain version on the host CPU, one thread,
+    in a worker process: (key, its outputs)."""
+    from genomeworks_tpu_torch.poa.torch_poa import pack_windows, poa_consensus_plain
+
+    key, ws, wt, max_nodes, E, A = job
+    seqs, wts, lens, nseqs, N = pack_windows(ws, wt, max_nodes)
+    args = [torch.from_numpy(a) for a in (seqs, wts, lens, nseqs)]
+    return key, list(poa_consensus_plain(*args, N, E, A, -8, -6, 8))
+
+
+#: the kernel's shared-memory paths a window takes (poa_window_paths bits)
+WINDOW_PATHS = {1: "no ring", 2: "an unstaged add", 4: "topsort on one lane",
+                8: "consensus scores in device memory"}
+
+
+def window_facts(ws, N, E, lib, prefix):
+    """What a set drives the full-band kernel through (its graph_prefix_facts
+    in ``prefix``; the ring rows and shared-memory paths the library gives
+    its L, N and graphs): lane and tile edges of the read lengths, tiles a
+    row, ring distances, lists past 32 slots, the code width, and the paths
+    taken where a window's ring or working set does not fit the shared
+    memory (WINDOW_PATHS)."""
+    from genomeworks_tpu_torch.ops import poa_cuda
+
+    L = max(len(r) for w in ws for r in w)
+    cpl, tw = window_cols(L)
+    R = lib.poa_window_ring_rows(L)
+    dist, ins, outs, als, nodes = prefix
+    paths = lib.poa_window_paths(L, N, nodes) if nodes else 0
+    facts = {f"{poa_cuda.code_bytes(E)}-byte codes"}
+    facts |= {name for bit, name in WINDOW_PATHS.items() if paths & bit}
+    for w in ws:
+        for r in w[1:]:
+            rl = len(r)
+            if rl % tw % cpl == cpl - 1:
+                facts.add("a lane's last column")
+            if rl % tw % cpl == 0 and rl:
+                facts.add("a lane's first column")
+            if rl + 1 == tw:
+                facts.add("a tile's last column")
+            if rl + 1 > tw:
+                facts.add("two tiles")
+            if rl >= 512:
+                facts.add("past 512 columns")
+    if R and R in dist:
+        facts.add("d = R")
+    if R + 1 in dist:
+        facts.add("d = R + 1")
+    for name, n in (("an in-list", ins), ("an out-list", outs), ("an aligned list", als)):
+        if n > 32:
+            facts.add(f"{name} past 32")
+    return facts
+
+
+def window_edge_sets(rng):
+    """The full-band kernel's edge cases for phase 2 and the card tests:
+    {key: (label, windows, weights, max_nodes, E, A, the window_facts the
+    set must reach)}."""
+    def rand(n):
+        return "".join("ACGT"[i] for i in rng.integers(0, 4, n))
+
+    def subst(s, rate):
+        return "".join("ACGT"[rng.integers(0, 4)] if rng.random() < rate else c for c in s)
+
+    sets = {}
+    # 9 columns a lane up to L = 287, where a tile of 288 columns is full:
+    # read lengths whose column rl is a lane's last or first
+    t = rand(287)
+    sets["lane-edges"] = (
+        "read lengths at a lane's edges, L = 287 (9 columns a lane, one full tile)",
+        [[t, subst(t[:k], 0.03), subst(t[:k], 0.03)] for k in (8, 9, 17, 18, 143, 144, 286, 287)],
+        None, None, 50, 50, {"a lane's last column", "a lane's first column",
+                             "a tile's last column"})
+    # 11 columns a lane past L = 287, tiles of 352: rows of one tile, a full
+    # one, and two
+    t = rand(353)
+    sets["tile-edges"] = (
+        "read lengths 350-353 at L = 353 (tiles of 352 columns)",
+        [[t, subst(t[:k], 0.03), subst(t[:k], 0.03)] for k in (350, 351, 352, 353)],
+        None, None, 50, 50, {"a tile's last column", "two tiles"})
+    # an insertion of k bases that match nothing puts the backbone edge
+    # around it at distance k + 1: the ring's last distance and past it
+    ring = []
+    for k in (1, 3, 4, 7, 8, 9):
+        t = rand(200)
+        ring.append([t, t[:100] + "N" * k + t[100:], t, subst(t, 0.03)])
+    sets["ring"] = ("predecessors at distances 2-10 at L = 209",
+                    ring, None, None, 50, 50, {"d = R", "d = R + 1"})
+    # reads of 640 bases, past the earlier kernel's tile of 512 columns, in
+    # two tiles, with a smaller ring and predecessors at its edge
+    long = []
+    for k in (1, 2, 3, 4, 5):
+        t = rand(640 - k)
+        long.append([t, t[:300] + "N" * k + t[300:], subst(t, 0.04), subst(t, 0.04)])
+    sets["long"] = ("reads of 635-640 bases: two tiles, past 512 columns",
+                    long, None, None, 50, 50, {"two tiles", "past 512 columns", "d = R",
+                                               "d = R + 1"})
+    # lists past 32 slots: 40 one-base insertions before one base (an
+    # in-list of 41 and an out-list of 41), a column of 41 bases (a clique
+    # past 32) at E = A = 48
+    t = rand(60)
+    wide = [t[:30] + chr(100 + i) + t[30:] for i in range(40)]
+    col = [t[:29] + "x" + chr(100 + i) + "y" + t[32:] for i in range(41)]
+    sets["wide-lists"] = ("lists past 32 slots at E = A = 48",
+                          [[t] + wide + wide[3:4], [t] + col + [t]], None, None, 48, 48,
+                          {"an in-list past 32", "an out-list past 32",
+                           "an aligned list past 32"})
+    # weights from 0 to 9, and an empty later read
+    ws = random_windows(rng, 8, (60, 160), 0.05, 0.05, reads=(4, 8))
+    ws = [w[:2] + [""] + w[2:] for w in ws]
+    wts = [[rng.integers(0, 10, size=len(x)).astype(np.int32) for x in w] for w in ws]
+    sets["empty-weighted"] = ("an empty later read, weights 0-9", ws, wts, None, 50, 50,
+                              {"1-byte codes"})
+    # 16-bit codes: every code from E = 85, a horizontal move's 2E from 128
+    sets["E100"] = ("random, E = A = 100", random_windows(rng, 8, (60, 200), 0.1, 0.1), None,
+                    None, 100, 100, {"2-byte codes"})
+    sets["E130"] = ("random, E = A = 130", random_windows(rng, 8, (60, 200), 0.1, 0.1), None,
+                    None, 130, 130, {"2-byte codes"})
+    # reads of 2000-2003 bases (N = 6009): a ring of 2 rows, too small for
+    # the graph's sort (more than 1206 nodes) and for N consensus scores;
+    # insertions of 1 and 2 bases put predecessors at distances R and R + 1
+    t = [rand(2000) for _ in range(2)]
+    sets["2kb"] = ("reads of 2000-2003 bases: topsort and consensus scores past the ring",
+                   [[x, x[:700] + "N" + x[700:1400] + "NN" + x[1400:], subst(x, 0.04)]
+                    for x in t], None, None, 50, 50,
+                   {"topsort on one lane", "consensus scores in device memory", "d = R",
+                    "d = R + 1"})
+    # reads of 2600 bases, past the 2463 that a ring of 2 rows takes: no
+    # ring, every row to the slab, and every phase without shared memory
+    t = [rand(2600) for _ in range(2)]
+    sets["no-ring"] = ("reads of 2594-2600 bases: no ring",
+                       [[x, subst(x[:k], 0.04), x[:1300] + "N" * 3 + x[1300:k]]
+                        for x, k in zip(t, (2594, 2597))], None, None, 50, 50,
+                       {"no ring", "an unstaged add", "topsort on one lane",
+                        "consensus scores in device memory"})
+    return sets
 
 
 # -- the aligner ----------------------------------------------------------------
@@ -928,6 +1122,11 @@ def lockstep_timing(covid, dev):
 # -- slice 4: the banded and MSA modes of the per-window kernel ------------------
 
 MODE_REPLACES = "genomeworks_tpu/ops/poa_pallas.py:1895"
+#: each instantiation's earlier time on the same covid windows (the banded
+#: ones unchanged since; full band a block per window then), ms, an H100
+#: 80GB HBM3 at 700 W
+EARLIER_MODE_MS = {"static": 10.879, "adaptive": 11.234, "static_msa": 12.090,
+                   "adaptive_msa": 11.827, "full_msa": 17.160, "full_graph": 16.450}
 # the instantiations of csrc/poa_consensus.cu this slice adds, by the name
 # ops/poa_cuda.instance_name gives them
 MODES = {
@@ -1128,6 +1327,9 @@ def slice4_phases(dev, covid, golden, n_long=256):
         print(line, flush=True)
     if not {0, 1, 2, 3} <= statuses:
         fail(f"the slice-4 check sets did not reach statuses 0-3 (got {sorted(statuses)})")
+    for mode, tm in timed.items():
+        print(f"{mode}: kernel {tm['ms']:.3f} ms on covid 0-{cut[mode] - 1} (earlier "
+              f"{EARLIER_MODE_MS[mode]:.3f} ms)")
     print(f"phase 9a: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # -- 9c-9e: the main paths, counts set to 0 just before each ---------------
@@ -1375,6 +1577,11 @@ def main() -> int:
     golden = load_golden_lines(os.path.join(DATA, "poa_golden_covid.txt"))
     if len(covid) != len(golden):
         fail(f"{len(covid)} windows but {len(golden)} golden lines")
+    # the full band's warp layout and 16-bit codes: each set must reach what
+    # it names (window_facts, from the plain chain's graphs on the CPU)
+    edge_sets = window_edge_sets(np.random.default_rng(6))
+    for label, ws, wt, max_nodes, E, A, _ in edge_sets.values():
+        cases.append((label, ws, wt, max_nodes, E, A))
     first = covid[:64]
     cfgs, groups = get_multi_batch_sizes(first, band_mode=BandMode.full_band)
     for cfg, wids in zip(cfgs, groups):
@@ -1382,11 +1589,39 @@ def main() -> int:
         ones = [[np.ones(len(s), np.int32) for s in w] for w in ws]
         cases.append((f"covid 0-63 bin {cfg.max_sequence_size}", ws, ones,
                       cfg.max_nodes_per_graph, 50, 50))
+    # the full band's MSA and graph instantiations on every set, and the
+    # consensus on every set but covid's, against their plain versions on
+    # the host CPU (one process per core, as phase 9a), and the edge sets'
+    # facts, while the card runs the covid checks: the plain chain on the
+    # card, a few launches a row, took several times as long as on one host
+    # core; covid's plain version is timed on the card for the kernels line
+    from genomeworks_tpu_torch.poa.torch_poa import pack_windows
+
+    pool = ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
+                               mp_context=multiprocessing.get_context("spawn"),
+                               initializer=torch.set_num_threads, initargs=(1,))
+    full_jobs = []
+    for name, ws, wt, max_nodes, E, A in cases:
+        N = pack_windows(ws, wt, max_nodes)[4]
+        full_jobs += [((mode, name), mode, ws, wt, [N] * len(ws), E) for mode in
+                      ("full_msa", "full_graph")]
+    def cost(ws):  # the longest jobs first
+        return -len(ws) * max(len(r) for w in ws for r in w) ** 1.5
+
+    fact_jobs = pool.map(graph_prefix_facts, [
+        (key, ws, pack_windows(ws, wt, max_nodes)[4], E, A)
+        for key, (_, ws, wt, max_nodes, E, A, _) in edge_sets.items()])
+    host_plain = pool.map(consensus_plain_job, sorted(
+        [case for case in cases if not case[0].startswith("covid")], key=lambda c: cost(c[1])))
+    full_plain = pool.map(plain_job, sorted(full_jobs, key=lambda j: cost(j[2])))
+    edge_labels = {v[0] for v in edge_sets.values()}
 
     max_err = 0
     statuses = set()
     timed = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0, "cells": 0, "pred_cells": 0}
     for name, ws, wt, max_nodes, E, A in cases:
+        if not name.startswith("covid"):
+            continue  # below, against their plain versions on the host CPU
         (seqs, wts_t, lens, nseqs), N = packed(ws, wt, max_nodes, dev)
         args = (seqs, wts_t, lens, nseqs)
         kw = dict(N=N, E=E, A=A, gap=-8, mismatch=-6, match=8)
@@ -1397,19 +1632,64 @@ def main() -> int:
         max_err = max(max_err, compare(name, k_out, p_out))
         st = sorted(set(k_out[3].tolist()))
         statuses.update(st)
-        slab = poa_cuda.load_library().poa_slab_bytes(N, seqs.shape[2], E, A)
-        print(f"check {name}: {len(ws)} windows, N={N} L={seqs.shape[2]} E={E} A={A} "
-              f"({slab} scratch bytes a window): kernel == plain (statuses {st}); "
-              f"kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
+        L = seqs.shape[2]
+        slab = lib.poa_slab_bytes(N, L, E, A)
+        earlier = EARLIER_FULL_MS.get(name)
+        print(f"check {name}: {len(ws)} windows, N={N} L={L} E={E} A={A} ({slab} scratch bytes "
+              f"a window, {poa_cuda.code_bytes(E)}-byte codes, a ring of "
+              f"{lib.poa_window_ring_rows(L)} rows, {lib.poa_windows_in_flight(0, L)} windows in flight "
+              f"on the card): kernel == plain (statuses {st}); kernel {k_ms:.3f} ms"
+              + (f" (the block-per-window kernel: {earlier:.3f} ms)" if earlier else "")
+              + f", plain {p_ms:.1f} ms on the card")
+        timed["ms"] += k_ms
+        timed["plain_ms"] += p_ms
+        timed["bytes"] += nbytes((*args, *k_out))
+        timed["ops"] += nw_ops(work)
+        timed["cells"] += work["cells"]
+        timed["pred_cells"] += work["pred_cells"]
+    prefix = {key: rest for key, *rest in fact_jobs}
+    host_ref = dict(host_plain)
+    edge_by_label = {v[0]: (key, v[6]) for key, v in edge_sets.items()}
+    for name, ws, wt, max_nodes, E, A in cases:
         if name.startswith("covid"):
-            timed["ms"] += k_ms
-            timed["plain_ms"] += p_ms
-            timed["bytes"] += nbytes((*args, *k_out))
-            timed["ops"] += nw_ops(work)
-            timed["cells"] += work["cells"]
-            timed["pred_cells"] += work["pred_cells"]
+            continue
+        (seqs, wts_t, lens, nseqs), N = packed(ws, wt, max_nodes, dev)
+        k_out = poa_consensus_cuda(seqs, wts_t, lens, nseqs, N=N, E=E, A=A)
+        max_err = max(max_err, compare(name, k_out, [t.to(dev) for t in host_ref[name]]))
+        k_ms, _ = cuda_ms(lambda: poa_cuda._launch(lib, seqs, wts_t, lens, nseqs, N, E, A, -8,
+                                                   -6, 8), reps=3)
+        L = seqs.shape[2]
+        R = lib.poa_window_ring_rows(L)
+        st = sorted(set(k_out[3].tolist()))
+        statuses.update(st)
+        if name not in edge_labels:
+            print(f"check {name}: {len(ws)} windows, N={N} L={L} E={E} A={A} "
+                  f"({lib.poa_slab_bytes(N, L, E, A)} scratch bytes a window, "
+                  f"{poa_cuda.code_bytes(E)}-byte codes, a ring of {R} rows): kernel == plain "
+                  f"(on the host CPU; statuses {st}); kernel {k_ms:.3f} ms")
+            continue
+        key, want = edge_by_label[name]
+        facts = window_facts(ws, N, E, lib, prefix[key])
+        if not want <= facts:
+            fail(f"the edge set {key!r} did not reach {sorted(want - facts)}")
+        print(f"check {name}: {len(ws)} windows, N={N} L={L} E={E} A={A} "
+              f"({poa_cuda.code_bytes(E)}-byte codes, a ring of {R} rows, "
+              f"{lib.poa_windows_in_flight(0, L)} windows in flight on the card): kernel == plain (on "
+              f"the host CPU; statuses {st}); kernel {k_ms:.3f} ms; reaches {sorted(facts)}")
     if not {0, 1, 2} <= statuses:
         fail(f"the check sets did not reach statuses 0, 1 and 2 (got {sorted(statuses)})")
+    by_key = {}
+    for key, out, _, _ in full_plain:
+        by_key[key] = out
+    for name, ws, wt, max_nodes, E, A in cases:
+        for mode in ("full_msa", "full_graph"):
+            fn, margs, mkw = mode_args(ws, wt, [pack_windows(ws, wt, max_nodes)[4]] * len(ws),
+                                       E, mode, dev)
+            max_err = max(max_err, compare(f"{mode} on {name}", fn(*margs, **mkw),
+                                           [t.to(dev) for t in by_key[(mode, name)]]))
+    pool.shutdown()
+    print(f"check full_msa and full_graph: kernel == plain (on the host CPU) on all "
+          f"{len(cases)} sets")
     (seqs, wts_t, lens, nseqs), N = packed([["ACGT", "ACGA"], ["", "ACGT"]], None, None, dev)
     launches = poa_cuda.poa_consensus_cuda.launches
     try:
@@ -1420,6 +1700,7 @@ def main() -> int:
     if not refused or poa_cuda.poa_consensus_cuda.launches != launches:
         fail("a window with an empty first read reached the kernel")
     print("check empty first read: refused before any launch")
+    print(f"phases 1-2: {time.perf_counter() - t_start:.1f} s")
 
     # -- 2b. the lockstep kernels vs their plain versions ------------------------
     lockstep, lk_kernels, lk_plains = lockstep_modules()
@@ -1548,10 +1829,13 @@ def main() -> int:
         (seqs, wts_t, lens, nseqs), N = packed(ws, ones, cfg.max_nodes_per_graph, dev)
         ms, _ = cuda_ms(lambda: poa_cuda._launch(lib, seqs, wts_t, lens, nseqs, N=N, E=50, A=50,
                                                  gap=-8, mismatch=-6, match=8))
+        chunk, fly = poa_cuda.last_chunk, lib.poa_windows_in_flight(0, seqs.shape[2])
         print(f"kernel on covid bin {cfg.max_sequence_size}: {len(ws)} windows, N={N}, "
-              f"{ms:.3f} ms")
+              f"{ms:.3f} ms; {-(-len(ws) // chunk)} launches of up to {chunk} windows, "
+              f"{fly} windows in flight on the card, so {-(-chunk // fly)} waves a launch")
         covid_ms += ms
-    print(f"kernel on the whole covid workload: {covid_ms:.3f} ms")
+    print(f"kernel on the whole covid workload: {covid_ms:.3f} ms (the block-per-window "
+          f"kernel: {EARLIER_COVID_MS:.3f} ms)")
 
     # -- 4-6. the aligner -----------------------------------------------------
     aligner_entries = aligner_phases(dev, aligner_ops)

@@ -7,8 +7,17 @@ the reference becomes a CUDA kernel written for ``sm_90a`` (sources under
 plain PyTorch version beside it, which the wrapper runs for tensors on the
 CPU; a CUDA tensor goes to the kernel or the call raises.
 
-Ported so far: full-band POA consensus through ``poa.PoaBatch``, and the
-banded aligner through ``aligner.create_aligner``.
+Ported so far, each path through its own CUDA kernels:
+
+- POA through ``poa.PoaBatch`` and ``poa.torch_poa``: full-band consensus on
+  the lockstep tier (``csrc/poa_lockstep.cu``) with its re-runs, or
+  ``use_lockstep=False``, on the per-window kernel
+  (``csrc/poa_consensus.cu``, a warp per window); static and adaptive band
+  and MSA output (the per-window kernel's banded and MSA instantiations);
+  ``get_graphs``; the traceback-banded modes through the host chain, as the
+  reference; and the ``gw_poa`` tool (``tools/gw_poa.py``);
+- the banded aligner through ``aligner.create_aligner`` (Myers, banded NW
+  and the run-length traceback).
 """
 
 __version__ = "0.1.0"

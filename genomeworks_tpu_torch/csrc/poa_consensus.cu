@@ -1,19 +1,22 @@
-// POA, one thread block per window, for Hopper (sm_90a): full-band,
-// static-band and adaptive-band consensus or MSA, and the full-band graph.
+// POA for Hopper (sm_90a): full-band, static-band and adaptive-band
+// consensus or MSA, and the full-band graph, each window's whole chain in
+// one kernel.
 //
 // Replaces the Pallas TPU kernel genomeworks_tpu/ops/poa_pallas.py:
 // poa_consensus_pallas (kernel body _poa_kernel) in all its modes: full
 // band, band_width > 0 (static; adaptive=True) and msa=True. Like the
 // reference's generatePOAKernel (cudapoa_kernels.cuh:78, instantiated per
 // band mode x output type at :613-1053) it runs the whole chain of one
-// window inside one block:
+// window in one kernel:
 //
 //   backbone -> [ NW -> traceback -> add alignment -> topological sort ]* ->
 //   consensus | MSA | graph export
 //
-// One template, poa_consensus_kernel<BAND, OUT>: BAND 0 full, 1 static,
-// 2 adaptive; OUT 0 consensus, 1 MSA, 2 the graph (full band only). The
-// full-band consensus instantiation is the kernel of slice 1, unchanged.
+// Two kernels:
+// - Full band: poa_window_kernel<CPL, OUT>, one warp per window, several
+//   windows a block (OUT 0 consensus, 1 MSA, 2 the graph).
+// - Banded: poa_consensus_kernel<BAND, OUT>, one block of 128 threads per
+//   window (BAND 1 static, 2 adaptive; OUT 0 consensus, 1 MSA).
 //
 // Full band has the semantics of the port's plain chain (poa/torch_poa.py):
 // int32 scores, the traceback priority codes (diagonal by edge order <
@@ -40,19 +43,51 @@
 //   chunks. A banded slab holds (N + 1) rows of the widest band a window
 //   can reach (band_width + 8 static, 1544 adaptive), so no window ever
 //   leaves the device for a host re-run.
-// - NW rows run in topological order with the block's threads across the
-//   read's columns (full band) or the band's lanes. A cell takes the max
-//   over its predecessor rows in edge order; the horizontal closure is a
-//   block-wide prefix max of v[j] - j*gap (warp shuffles, then one word per
-//   warp in shared memory). A row costs two block barriers plus the
-//   dependent loads of its predecessor rows.
-// - Traceback, add-alignment, topological sort, consensus and the MSA's DFS
-//   are pointer chases; one thread runs them between barriers, as the
-//   reference's warp-uniform code does. They are bound by the latency of
-//   dependent global-memory loads, not by bytes or operations. Many windows
-//   in flight per SM hide part of it; making these phases fast is later
-//   work. For the same reason the kernel caps its registers to keep 12
-//   windows in flight per SM (see the kernel).
+// - A window's chain is a sequence of thousands of dependent steps (an NW
+//   row needs its predecessor rows; a walk step needs the last one's node),
+//   each a few hundred cycles of latency, not bytes or operations. The full
+//   band therefore gives a window one warp, so a row costs no block-wide
+//   barrier and no thread idles past the read's end, and many windows a
+//   card:
+//   * NW: each lane holds CPL consecutive columns of a tile of 32 * CPL in
+//     registers (CPL 9 for reads up to 287 bases, 11 beyond; longer reads
+//     run in tiles with a carry). Scores are kept less j * gap, so the
+//     horizontal closure is a prefix max: in the lane, then one shuffle
+//     scan, then the carry of the earlier tiles. The codes' tie-breaks are
+//     taken in the same pass over the predecessors. A ring of the last R
+//     score rows (R = 8, fewer for long reads) in shared memory serves the
+//     predecessor reads at short distance, most of them; the full score
+//     matrix in the slab serves the farther ones, so there is no distance
+//     cap. A row goes there when the prologue finds a later row reading it
+//     from beyond the ring (every row, where no ring fits). The last row
+//     stays in registers when the read fits one tile. A row's metadata and
+//     predecessor list are loaded a row ahead, and its codes go out a word
+//     at a time through a shared-memory stage.
+//   * Traceback: one lane's walk over the codes.
+//   * Add: the walk's independent loads taken off its chain. The lanes
+//     load 32 moves at a time into shared memory (the read's base and
+//     weight, the graph node and its base, counts and first in-list slots),
+//     and lane 0 walks them: a step that lands on a node no earlier step
+//     changed, most steps, reads nothing from device memory. (Scanning the
+//     lists one slot a lane, as the lockstep add does, measured no faster:
+//     its shuffles and barriers cost what the scans saved.)
+//   * Topsort: Kahn's order, from shared memory: the lanes copy each
+//     node's out-count and first out-edges there, then one lane per
+//     out-edge of the popped node; a ballot enqueues the nodes whose count
+//     reached zero, in edge order.
+//   * Consensus: one lane per in-edge, a reduction with the reference's
+//     tie-breaks.
+//   * The MSA's DFS and the emission walk stay on one lane.
+//   The add's stage, the topsort's working set and the consensus scores
+//   use the ring's shared memory when they fit it (window_paths). Else the
+//   add walks on lane 0 alone, the topsort is topsort() on lane 0, and the
+//   scores stay in device memory.
+// - The banded modes keep a block of 128 threads per window: its threads
+//   across the band's lanes, a block-wide prefix max with two barriers a
+//   row, and the pointer chases on thread 0.
+//
+// Priority codes are uint8 while 3E + 1 <= 255 (E <= 84) and uint16 above,
+// so E reaches 21844; the slab's code matrix grows only for E > 84.
 //
 // Built with nvcc into a shared library with a plain C interface and loaded
 // with ctypes (genomeworks_tpu_torch/ops/_build.py). Never with
@@ -64,10 +99,10 @@
 
 namespace {
 
-constexpr int NT = 128;              // threads per block (one window)
+constexpr int NT = 128;              // threads per block of the banded kernel
 constexpr int NWARP = NT / 32;
-constexpr int CPT = 4;               // NW columns per thread per tile
-constexpr int TILE = NT * CPT;       // NW columns per tile
+constexpr int CPT = 4;               // band lanes per thread per tile
+constexpr int TILE = NT * CPT;       // band lanes per tile
 constexpr int NEG_ID = INT_MIN;      // identity of max in the prefix scan
 constexpr int NEG_SINK = -(1 << 30); // jax_poa's NEG: "no sink row yet"
 
@@ -77,11 +112,68 @@ constexpr int MAX_BAND = 1536;       // MAX_ADAPTIVE_BAND_WIDTH
 constexpr int PAD = 8;               // BANDED_MATRIX_RIGHT_PADDING
 constexpr int SHIFT_LEFT = -10, SHIFT_RIGHT = -11, LOOP_FAILED = -1;
 
+// Debug build (-DPOA_PHASE_CLOCKS=1, off in normal builds): the full-band
+// chain sums clock64() cycles per phase over its windows (lane 0's clock):
+// NW, traceback, add, topsort, the final consensus / MSA / export; and
+// counts windows, NW rows and alignment moves.
+#ifdef POA_PHASE_CLOCKS
+constexpr int PHASE_COUNTERS = 15;
+__device__ unsigned long long g_phase_clocks[PHASE_COUNTERS];
+#define PHASE_T0()                                                     \
+  unsigned long long clk_sum_[PHASE_COUNTERS] = {0, 0, 0, 0, 0, 1};       \
+  long long clk_t0_ = clock64()
+#define PHASE_COUNT(k, n) clk_sum_[k] += (unsigned long long)(n)
+// the NW row's segments (counters 8-12): the predecessor rows, the
+// closure, the codes and ring writes, the copies to the slab, the best row;
+// and the NW's cells and predecessor cells (13, 14), for the bound
+#define SEG_INIT() long long seg_t_ = 0; unsigned long long seg_[7] = {}
+#define SEG_CELLS(np) (seg_[5] += unsigned(rl + 1), seg_[6] += unsigned(np) * unsigned(rl + 1))
+#define SEG_T0() seg_t_ = clock64()
+#define SEG(k)                                          \
+  do {                                                  \
+    const long long seg_u_ = clock64();                 \
+    seg_[k] += (unsigned long long)(seg_u_ - seg_t_);   \
+    seg_t_ = seg_u_;                                    \
+  } while (0)
+#define SEG_FLUSH()                                                                   \
+  do {                                                                                \
+    if ((threadIdx.x & 31) == 0)                                                      \
+      for (int k_ = 0; k_ < 7; ++k_) atomicAdd(&g_phase_clocks[8 + k_], seg_[k_]);     \
+  } while (0)
+#define PHASE_MARK() clk_t0_ = clock64()
+#define PHASE_ADD(k)                                        \
+  do {                                                      \
+    const long long clk_t1_ = clock64();                    \
+    clk_sum_[k] += (unsigned long long)(clk_t1_ - clk_t0_); \
+    clk_t0_ = clk_t1_;                                      \
+  } while (0)
+#define PHASE_FLUSH()                                                              \
+  do {                                                                             \
+    if ((threadIdx.x & 31) == 0)                                                   \
+      for (int k_ = 0; k_ < PHASE_COUNTERS; ++k_)                                    \
+        atomicAdd(&g_phase_clocks[k_], clk_sum_[k_]);                             \
+  } while (0)
+#else
+#define PHASE_T0()
+#define PHASE_COUNT(k, n)
+#define SEG_INIT()
+#define SEG_CELLS(np)
+#define SEG_T0()
+#define SEG(k)
+#define SEG_FLUSH()
+#define PHASE_MARK()
+#define PHASE_ADD(k)
+#define PHASE_FLUSH()
+#endif
+
 __host__ __device__ inline size_t align_up(size_t x) { return (x + 255) & ~size_t(255); }
 
+// Bytes of a priority code: the codes reach 3E + 1.
+__host__ __device__ inline int code_bytes(int E) { return 3 * E + 1 > 255 ? 2 : 1; }
+
 // Byte offsets of the per-window slab's arrays (int32 unless stated). The
-// full-band consensus layout is slice 1's; the other modes swap the NW
-// matrices and add the MSA's arrays.
+// full-band consensus layout is slice 1's, its codes widened for E > 84;
+// the other modes swap the NW matrices and add the MSA's arrays.
 struct Layout {
   size_t nodes, in_count, out_count, al_count, cov, sorted, pos_of, local,
       cscore, cpred, meta, mark, in_edges, in_w, out_edges, rpred, al, ag, ar,
@@ -100,7 +192,7 @@ struct Layout {
     ag = take(o, K * 4); ar = take(o, K * 4);
     if (band == 0) {
       scores = take(o, cells * 4);
-      codes = take(o, cells);  // uint8: codes <= 3E+1 <= 255
+      codes = take(o, cells * code_bytes(E));  // uint8, or uint16 past E = 84
       bstart = 0;
     } else {
       scores = take(o, size_t(N + 1) * W * 4);  // band rows, no codes
@@ -139,142 +231,54 @@ struct Win {
   int *nodes, *in_count, *out_count, *al_count, *cov, *sorted, *pos_of, *local,
       *cscore, *cpred, *meta, *mark, *in_edges, *in_w, *out_edges, *rpred, *al, *ag, *ar,
       *scores;
-  uint8_t* codes;
-  int N, L, E, A;
+  uint8_t* codes;  // full band: cb bytes a code
+  int N, L, E, A, cb;
   // banded modes and MSA only
   int *bstart, *seq_next, *begin, *col, *chk, *stack;
   int S;
 };
 
-// Full-band NW of the read in s_read (length rl) against the window's
-// graph of nc nodes. Writes score and code rows 1..nc; returns (in thread
-// 0 via shared memory) the first sink row with the highest score at column
-// rl. All threads call it.
-__device__ void nw_forward(const Win& w, const uint8_t* s_read, int rl, int nc, int gap,
-                           int mismatch, int match, int* s_wtot, int* s_best) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int E = w.E, LD = w.L + 1;
-  const int HORIZ = 2 * E, BIGP = 3 * E + 1;
-
-  // per-row metadata: base | sink << 8 | npred << 16, and predecessor rows
-  for (int r = tid; r < nc; r += NT) {
-    const int nid = w.sorted[r];
-    const int pc = w.in_count[nid];
-    w.meta[r] = (w.nodes[nid] & 0xff) | ((w.out_count[nid] == 0) << 8) | (max(pc, 1) << 16);
-    int* rp = w.rpred + size_t(r) * E;
-    if (pc == 0) rp[0] = 0;  // a source row's predecessor is the virtual row 0
-    for (int e = 0; e < pc; ++e) rp[e] = w.pos_of[w.in_edges[size_t(nid) * E + e]] + 1;
+// A window's view of the slab at `base`.
+__device__ Win slab_win(uint8_t* base, const Layout& lay, int N, int L, int E, int A, int S,
+                        bool banded, bool msa) {
+  Win w;
+  w.nodes = (int*)(base + lay.nodes);
+  w.in_count = (int*)(base + lay.in_count);
+  w.out_count = (int*)(base + lay.out_count);
+  w.al_count = (int*)(base + lay.al_count);
+  w.cov = (int*)(base + lay.cov);
+  w.sorted = (int*)(base + lay.sorted);
+  w.pos_of = (int*)(base + lay.pos_of);
+  w.local = (int*)(base + lay.local);
+  w.cscore = (int*)(base + lay.cscore);
+  w.cpred = (int*)(base + lay.cpred);
+  w.meta = (int*)(base + lay.meta);
+  w.mark = (int*)(base + lay.mark);
+  w.in_edges = (int*)(base + lay.in_edges);
+  w.in_w = (int*)(base + lay.in_w);
+  w.out_edges = (int*)(base + lay.out_edges);
+  w.rpred = (int*)(base + lay.rpred);
+  w.al = (int*)(base + lay.al);
+  w.ag = (int*)(base + lay.ag);
+  w.ar = (int*)(base + lay.ar);
+  w.scores = (int*)(base + lay.scores);
+  w.codes = base + lay.codes;
+  w.N = N;
+  w.L = L;
+  w.E = E;
+  w.A = A;
+  w.cb = code_bytes(E);
+  w.bstart = banded ? (int*)(base + lay.bstart) : nullptr;
+  w.seq_next = w.begin = w.col = w.chk = w.stack = nullptr;
+  w.S = S;
+  if (msa) {
+    w.seq_next = (int*)(base + lay.seq_next);
+    w.begin = (int*)(base + lay.begin);
+    w.col = (int*)(base + lay.col);
+    w.chk = (int*)(base + lay.chk);
+    w.stack = (int*)(base + lay.stack);
   }
-  for (int j = tid; j <= rl; j += NT) w.scores[j] = j * gap;
-  __syncthreads();
-
-  int best = NEG_SINK, best_i = 1;  // kept by the thread owning column rl
-  for (int r = 0; r < nc; ++r) {
-    const int meta = w.meta[r];
-    const int nb = meta & 0xff, sink = (meta >> 8) & 1, np = meta >> 16;
-    const int* rp = w.rpred + size_t(r) * E;
-    int* row_out = w.scores + size_t(r + 1) * LD;
-    uint8_t* code_out = w.codes + size_t(r + 1) * LD;
-    int carry = NEG_ID;  // max of v[j] - j*gap over earlier tiles
-    for (int t0 = 0; t0 <= rl; t0 += TILE) {
-      const int j0 = t0 + tid * CPT;
-      int v[CPT];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) v[c] = NEG_ID;
-      for (int e = 0; e < np; ++e) {
-        const int* prow = w.scores + size_t(rp[e]) * LD;
-        int left = (j0 >= 1 && j0 - 1 <= rl) ? prow[j0 - 1] : 0;
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          const int j = j0 + c;
-          if (j <= rl) {
-            const int up = prow[j];
-            int cand = up + gap;
-            if (j >= 1) cand = max(cand, left + (s_read[j - 1] == nb ? match : mismatch));
-            v[c] = max(v[c], cand);
-            left = up;
-          }
-        }
-      }
-      // horizontal closure: row[j] = max_{k<=j}(v[k] - k*gap) + j*gap
-      int pm[CPT], run = NEG_ID;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const int j = j0 + c;
-        if (j <= rl) run = max(run, v[c] - j * gap);
-        pm[c] = run;
-      }
-      const int incl = warp_incl_max(run);
-      int excl = __shfl_up_sync(0xffffffffu, incl, 1);
-      if (lane == 0) excl = NEG_ID;
-      if (lane == 31) s_wtot[warp] = incl;
-      __syncthreads();
-      int pre = max(carry, excl), tile_max = carry;
-      for (int k = 0; k < NWARP; ++k) {
-        if (k < warp) pre = max(pre, s_wtot[k]);
-        tile_max = max(tile_max, s_wtot[k]);
-      }
-      // priority codes against the closed row
-      int prev = 0;  // row[j0 - 1]
-      if (j0 >= 1 && j0 <= rl) prev = pre + (j0 - 1) * gap;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const int j = j0 + c;
-        if (j > rl) break;
-        const int rv = max(pre, pm[c]) + j * gap;
-        int code = -1;
-        if (j == 0) {
-          for (int e = 0; e < np && code < 0; ++e)
-            if (w.scores[size_t(rp[e]) * LD] + gap == rv) code = E + e;
-          if (code < 0) code = BIGP;
-        } else {
-          const int sub = s_read[j - 1] == nb ? match : mismatch;
-          for (int e = 0; e < np && code < 0; ++e)
-            if (w.scores[size_t(rp[e]) * LD + j - 1] + sub == rv) code = e;
-          for (int e = 0; e < np && code < 0; ++e)
-            if (w.scores[size_t(rp[e]) * LD + j] + gap == rv) code = E + e;
-          if (code < 0) code = (rv == prev + gap) ? HORIZ : BIGP;
-        }
-        row_out[j] = rv;
-        code_out[j] = uint8_t(code);
-        if (j == rl && sink && rv > best) {
-          best = rv;
-          best_i = r + 1;
-        }
-        prev = rv;
-      }
-      carry = tile_max;
-      __syncthreads();  // row visible to the next row; s_wtot free again
-    }
-  }
-  if (tid == (rl % TILE) / CPT) *s_best = best_i;
-  __syncthreads();
-}
-
-// Traceback from (best_i, rl) over the codes; ag/ar in backward order.
-// Returns the alignment length, or -1 when the walk does not reach (0, 0).
-__device__ int traceback(const Win& w, int best_i, int rl) {
-  const int E = w.E, LD = w.L + 1, HORIZ = 2 * E, K = w.N + w.L;
-  int i = best_i, j = rl, k = 0;
-  for (int steps = 0; (i != 0 || j != 0) && steps < K + 2; ++steps) {
-    const int code = (i == 0) ? HORIZ : w.codes[size_t(i) * LD + j];
-    int pi, pj;
-    if (code == HORIZ) {
-      pi = i;
-      pj = j - 1;
-    } else {
-      pi = w.rpred[size_t(i - 1) * E + code % E];
-      pj = code < E ? j - 1 : j;
-    }
-    if (k < K) {
-      w.ag[k] = (pi == i) ? -1 : w.sorted[i - 1];
-      w.ar[k] = (pj == j) ? -1 : j - 1;
-    }
-    ++k;
-    i = pi;
-    j = pj;
-  }
-  return (i != 0 || j != 0) ? -1 : k;
+  return w;
 }
 
 // -- banded modes (poa/banded.py) ----------------------------------------------
@@ -554,6 +558,23 @@ __device__ bool walk_conflicts(const Win& w, int aln_len, int stamp) {
   return conflict;
 }
 
+// The walk's running state: the last node, its read weight, its out-count
+// where a staged batch gave it (-1: read it), the node count, the error and
+// the clique-conflict test (-1 until computed).
+struct Walk {
+  int head, prev_w, head_oc, nc, err, conflict;
+};
+
+// A batch of 32 of the walk's moves loaded ahead by the warp (full band),
+// in shared memory: per move its read position (-1 for a gap in the read),
+// graph node, the read's base and weight, and for a graph node the node's
+// base, in-count, out-count and first ADD_PRE in-list slots and weights.
+constexpr int ADD_PRE = 4;
+struct AddStage {
+  int rp[32], gid[32], base[32], wt[32], gbase[32], ic[32], oc[32];
+  int ie[ADD_PRE][32], iw[ADD_PRE][32];
+};
+
 // Sequential alignment-to-graph walk (cudapoa_add_alignment.cuh) with the
 // error precedence of jax_poa's chain (torch_poa.add_alignment_batched_seq):
 // a walk with a clique conflict stops after the step that raises an error;
@@ -561,30 +582,40 @@ __device__ bool walk_conflicts(const Win& w, int aln_len, int stamp) {
 // aligned-node overflow (2) replaces it. FIRST_WINS gives the banded chain's
 // precedence (cpu_reference.add_alignment): the walk stops after its first
 // erring step, where a node overflow wins over a 2. MSA records read
-// `stamp`'s path in seq_next and its first node in begin. Returns the error.
-template <bool FIRST_WINS, bool MSA>
-__device__ int add_alignment(const Win& w, int aln_len, const uint8_t* s_read,
-                             const int* wts, int* node_count, int stamp) {
+// `stamp`'s path in seq_next and its first node in begin. Walks the moves
+// from position `from` down to `to` + 1 (the moves are in backward order)
+// from the state k; returns true where the walk stops. One thread.
+//
+// STAGED: the moves come from `st` (position from - i at slot i), and a
+// node's staged fields stand for its own unless an earlier step of the walk
+// landed on it (a bit in `touched`, N bits): only the node a step lands on
+// has its base, in-list or counts changed, and the step after it its
+// out-count (that node is then the head).
+template <bool FIRST_WINS, bool MSA, bool STAGED = false>
+__device__ bool add_steps(const Win& w, int aln_len, int from, int to, const uint8_t* s_read,
+                          const int* wts, int stamp, Walk& k, const AddStage* st = nullptr,
+                          unsigned* touched = nullptr) {
   const int N = w.N, E = w.E, A = w.A;
-  int head = -1, prev_w = 0, nc = *node_count, err = 0, conflict = -1;
-  for (int pos = aln_len - 1; pos >= 0; --pos) {
-    if (FIRST_WINS && err) break;
-    if (err == 2) break;
-    if (err == 1) {
-      if (conflict < 0) conflict = walk_conflicts(w, aln_len, stamp);
-      if (conflict) break;
+  for (int pos = from; pos > to; --pos) {
+    if (FIRST_WINS && k.err) return true;
+    if (k.err == 2) return true;
+    if (k.err == 1) {
+      if (k.conflict < 0) k.conflict = walk_conflicts(w, aln_len, stamp);
+      if (k.conflict) return true;
     }
-    const int rp = w.ar[pos];
+    const int i = from - pos;
+    const int rp = STAGED ? st->rp[i] : w.ar[pos];
     if (rp == -1) continue;
-    const int gid = w.ag[pos];
-    const int wt = wts[rp];
-    const int base = s_read[rp];
+    const int gid = STAGED ? st->gid[i] : w.ag[pos];
+    const int wt = STAGED ? st->wt[i] : wts[rp];
+    const int base = STAGED ? st->base[i] : s_read[rp];
+    const bool fresh = STAGED && gid != -1 && !((touched[gid >> 5] >> (gid & 31)) & 1);
     bool reuse_graph = false, reuse_aligned = false;
     int first_aligned = 0, na = 0;
     if (gid != -1) {
-      na = w.al_count[gid];
-      reuse_graph = w.nodes[gid] == base;
+      reuse_graph = (fresh ? st->gbase[i] : w.nodes[gid]) == base;
       if (!reuse_graph) {
+        na = w.al_count[gid];
         for (int a = 0; a < na; ++a) {
           const int aid = w.al[size_t(gid) * A + a];
           if (w.nodes[aid] == base) {
@@ -597,11 +628,11 @@ __device__ int add_alignment(const Win& w, int aln_len, const uint8_t* s_read,
     }
     const bool new_node = !reuse_graph && !reuse_aligned;
     const bool new_aligned = new_node && gid != -1;
-    int cur = reuse_graph ? gid : (reuse_aligned ? first_aligned : nc);
+    int cur = reuse_graph ? gid : (reuse_aligned ? first_aligned : k.nc);
     cur = min(cur, N - 1);
     if (new_node) {
-      ++nc;
-      if (nc >= N) err = 1;
+      ++k.nc;
+      if (k.nc >= N) k.err = 1;
       w.nodes[cur] = base;
       w.out_count[cur] = 0;
       w.in_count[cur] = 0;
@@ -623,39 +654,66 @@ __device__ int add_alignment(const Win& w, int aln_len, const uint8_t* s_read,
       w.al_count[gid] = na + 1;
       cl[na] = gid;
       w.al_count[cur] = na + 1;
-      if (na + 1 > A - 1 && (!FIRST_WINS || !err)) err = 2;
+      if (na + 1 > A - 1 && (!FIRST_WINS || !k.err)) k.err = 2;
     }
-    if (head != -1) {
+    // the step lands on its graph node, whose staged in-list holds
+    const bool staged_list = fresh && reuse_graph && st->ic[i] <= ADD_PRE;
+    if (k.head != -1) {
       int* il = w.in_edges + size_t(cur) * E;
       int* iw = w.in_w + size_t(cur) * E;
-      const int ic = w.in_count[cur];
+      const int ic = staged_list ? st->ic[i] : w.in_count[cur];
       bool exists = false;
-      for (int e = 0; e < ic; ++e) {
-        if (il[e] == head) {
-          exists = true;
-          iw[e] += prev_w + wt;
+      if (staged_list) {
+#pragma unroll
+        for (int e = 0; e < ADD_PRE; ++e) {
+          if (e < ic && st->ie[e][i] == k.head) {
+            exists = true;
+            iw[e] = st->iw[e][i] + k.prev_w + wt;
+          }
+        }
+      } else {
+        for (int e = 0; e < ic; ++e) {
+          if (il[e] == k.head) {
+            exists = true;
+            iw[e] += k.prev_w + wt;
+          }
         }
       }
       if (!exists) {
-        il[ic] = head;
-        iw[ic] = prev_w + wt;
+        il[ic] = k.head;
+        iw[ic] = k.prev_w + wt;
         w.in_count[cur] = ic + 1;
-        const int oc = w.out_count[head];
-        w.out_edges[size_t(head) * E + oc] = cur;
-        w.out_count[head] = oc + 1;
-        if ((oc + 1 >= E || ic + 1 >= E) && (!FIRST_WINS || !err)) err = 2;
+        const int oc = k.head_oc >= 0 ? k.head_oc : w.out_count[k.head];
+        w.out_edges[size_t(k.head) * E + oc] = cur;
+        w.out_count[k.head] = oc + 1;
+        if ((oc + 1 >= E || ic + 1 >= E) && (!FIRST_WINS || !k.err)) k.err = 2;
       }
     }
     if (MSA) {
-      if (head != -1) w.seq_next[size_t(head) * w.S + stamp] = cur;
+      if (k.head != -1) w.seq_next[size_t(k.head) * w.S + stamp] = cur;
       if (rp == 0) w.begin[stamp] = cur;
     }
-    w.cov[cur] += 1;
-    head = cur;
-    prev_w = wt;
+    if (STAGED) {
+      atomicAdd(&w.cov[cur], 1);  // a reduction: the walk does not wait for it
+      touched[cur >> 5] |= 1u << (cur & 31);
+      k.head_oc = new_node ? 0 : (fresh && reuse_graph ? st->oc[i] : -1);
+    } else {
+      w.cov[cur] += 1;
+    }
+    k.head = cur;
+    k.prev_w = wt;
   }
-  *node_count = nc;
-  return err;
+  return false;
+}
+
+// The whole walk of an alignment of aln_len moves; returns the error.
+template <bool FIRST_WINS, bool MSA>
+__device__ int add_alignment(const Win& w, int aln_len, const uint8_t* s_read,
+                             const int* wts, int* node_count, int stamp) {
+  Walk k{-1, 0, -1, *node_count, 0, -1};
+  add_steps<FIRST_WINS, MSA>(w, aln_len, aln_len - 1, -1, s_read, wts, stamp, k);
+  *node_count = k.nc;
+  return k.err;
 }
 
 // Kahn's sort (cudapoa_topsort.cuh:46): seeds by ascending id, FIFO
@@ -850,11 +908,767 @@ __device__ int msa_emit(const Win& w, int nc, int nseq, int Nrow, uint8_t* msa) 
   return col;
 }
 
+// -- full band: one warp per window ------------------------------------------------
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int NEG_HALF = INT_MIN / 2;  // below every score; a score added to it stays below
+constexpr int WIN_WARPS = 4;           // windows a block, at most
+constexpr int RING_MAX = 8;            // score rows in the shared ring, at most
+constexpr int WARP_SMEM_BUDGET = 24 * 1024;  // a window's shared memory, for R
+constexpr int META_FAR = 1 << 9;  // a row read from beyond the ring
+
+// Shared memory of one window (warp), 16-aligned: the ring of R score rows
+// of RW ints (column j at j: with an odd CPL a lane's columns and 32
+// consecutive columns both fall in distinct banks), the read, and two code
+// stages of a tile each.
+struct WarpSmem {
+  int R, RW;
+  size_t ring, read, stage, stage_bytes, bytes;
+  __host__ __device__ WarpSmem(int L, int cpl, int R_) {
+    const int TW = 32 * cpl;
+    R = R_;
+    RW = (L + TW) / TW * TW;  // whole tiles covering columns 0..L
+    stage_bytes = (size_t(TW) * 2 + 4 + 15) / 16 * 16;
+    size_t o = 0;
+    ring = o;
+    o += size_t(R) * RW * 4;
+    read = o;
+    o += (size_t(L) + 15) / 16 * 16;
+    stage = o;
+    o += 2 * stage_bytes;
+    bytes = o;
+  }
+};
+
+// Bytes topsort_cached needs for nc nodes: per node its out-count, its
+// first OUT_CACHE out-edges, its count of unplaced in-edges and a queue
+// slot, 16 bits each.
+constexpr int OUT_CACHE = 4;
+__host__ __device__ inline size_t topsort_cache_bytes(int nc) {
+  return size_t(nc) * (OUT_CACHE + 3) * 2;
+}
+
+// Which of its shared-memory paths a window with a ring of ring_bytes, a
+// node cap N and nc nodes takes, as bits: WIN_NO_RING, no score ring (all
+// rows to the slab); WIN_ADD_UNSTAGED, the add walks on lane 0 without the
+// stage; WIN_TOPSORT_SCALAR, topsort() on lane 0 instead of
+// topsort_cached; WIN_CSCORE_DEVICE, the consensus scores in device memory.
+// The kernel decides by it, and poa_window_paths reports it.
+constexpr int WIN_NO_RING = 1, WIN_ADD_UNSTAGED = 2, WIN_TOPSORT_SCALAR = 4,
+              WIN_CSCORE_DEVICE = 8;
+__host__ __device__ inline int window_paths(size_t ring_bytes, int N, int nc) {
+  int p = 0;
+  if (ring_bytes == 0) p |= WIN_NO_RING;
+  if (ring_bytes < sizeof(AddStage) + size_t(N + 31) / 32 * 4) p |= WIN_ADD_UNSTAGED;
+  if (N > 65535 || topsort_cache_bytes(nc) > ring_bytes) p |= WIN_TOPSORT_SCALAR;
+  if (ring_bytes < size_t(N) * 4) p |= WIN_CSCORE_DEVICE;
+  return p;
+}
+
+// Full-band NW of the read in s_read (length rl) against the window's
+// graph of nc nodes, by the warp: writes the score and code rows 1..nc of
+// the slab; returns (in every lane) the first sink row with the highest
+// score at column rl.
+template <int CPL, int CB>
+__device__ int nw_warp(const Win& w, const uint8_t* s_read, int rl, int nc, int gap,
+                       int mismatch, int match, int* ring, int R, int RW, uint8_t* stage0,
+                       int stage_bytes) {
+  constexpr int TW = 32 * CPL;
+  const int lane = threadIdx.x & 31;
+  const int E = w.E, LD = w.L + 1, cb = CB;
+  const int HORIZ = 2 * E, BIGP = 3 * E + 1;
+  int* const scores = w.scores;
+  uint8_t* const codes = w.codes;
+  int* const metas = w.meta;
+  int* const rpred = w.rpred;
+
+  // per-row metadata: base | sink << 8 | far << 9 | npred << 16, and
+  // predecessor rows; a row that a later row reads from beyond the ring is
+  // flagged far, and only such rows go to the slab's score matrix
+  const int ntiles = rl / TW + 1;  // columns 0..rl
+  const bool one = ntiles == 1;
+  auto in_ring = [&](int d) { return d < R || (one && d == R); };
+  for (int r = lane; r < nc; r += 32) metas[r] = 0;
+  __syncwarp();
+  for (int r = lane; r < nc; r += 32) {
+    const int nid = w.sorted[r];
+    const int pc = w.in_count[nid];
+    int* rp = rpred + size_t(r) * E;
+    if (pc == 0) rp[0] = 0;  // a source row's predecessor is the virtual row 0
+    for (int e = 0; e < pc; ++e) {
+      const int pos = w.pos_of[w.in_edges[size_t(nid) * E + e]];
+      rp[e] = pos + 1;
+      if (!in_ring(r - pos)) atomicOr(&metas[pos], META_FAR);
+    }
+    atomicOr(&metas[r], (w.nodes[nid] & 0xff) | ((w.out_count[nid] == 0) << 8) |
+                            (max(pc, 1) << 16));
+  }
+  __syncwarp();
+
+  // Scores are kept as S'[j] = S[j] - j * gap: a vertical move adds gap, a
+  // diagonal one sub - gap, the horizontal closure is a prefix max, a
+  // horizontal move is S'[j] == S'[j - 1], and row 0 is all 0. Codes and
+  // the best sink row compare scores of one column, so they are those of S.
+  const int dsub_match = match - gap, dsub_mismatch = mismatch - gap;
+  const int rl_tile = rl / TW, rl_lane = (rl % TW) / CPL, rl_c = (rl % TW) % CPL;
+  int row[CPL];  // the tile just computed; with one tile, the last row
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) row[c] = 0;
+  uint32_t rb[(CPL + 3) / 4];  // the read's base before each column, four to a word
+  int best = NEG_SINK, best_i = 1;
+  SEG_INIT();
+  int nmeta = metas[0];
+  int npred = lane < E ? rpred[lane] : 0, npred0 = rpred[0];
+  int tiles_done = 0;  // its parity picks the code stage
+  for (int r = 0; r < nc; ++r) {
+    const int g = r + 1;
+    const int meta = nmeta, mypred = npred, pred0 = npred0;
+    if (r + 1 < nc) {  // the next row's, loaded a row ahead
+      nmeta = metas[r + 1];
+      npred = lane < E ? rpred[size_t(r + 1) * E + lane] : 0;
+      npred0 = rpred[size_t(r + 1) * E];
+    }
+    const int nb = meta & 0xff, sink = (meta >> 8) & 1, np = meta >> 16;
+    const int* rp = rpred + size_t(r) * E;
+    int carry = NEG_ID;  // max of S' over the earlier tiles' columns
+    SEG_T0();
+    SEG_CELLS(np);
+    for (int t = 0; t < ntiles; ++t, ++tiles_done) {
+      const int jt = t * TW, j0 = jt + lane * CPL;
+      if (!one || r == 0) {
+#pragma unroll
+        for (int k = 0; k < (CPL + 3) / 4; ++k) rb[k] = 0;
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) {
+          const int j = j0 + c;
+          if (j >= 1 && j <= rl) rb[c >> 2] |= uint32_t(s_read[j - 1]) << ((c & 3) * 8);
+        }
+      }
+      // the predecessor row prow's columns of this tile, and the column
+      // left of the tile (lane 0's diagonal at t > 0); columns past rl of a
+      // row in the slab read NEG_HALF
+      auto load = [&](int prow, int* up) {
+        const int d = g - prow;
+        int left = NEG_HALF;
+        if (prow == 0) {
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) up[c] = 0;
+          left = 0;
+        } else if (one && d == 1) {
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) up[c] = row[c];
+        } else if (in_ring(d)) {
+          const int* src = ring + (prow & (R - 1)) * RW;
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) up[c] = src[j0 + c];
+          if (t) left = src[jt - 1];
+        } else {
+          const int* src = scores + size_t(prow) * LD;
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) up[c] = j0 + c <= rl ? src[j0 + c] : NEG_HALF;
+          if (t) left = src[jt - 1];
+        }
+        const int l = __shfl_up_sync(FULL, up[CPL - 1], 1);
+        return lane ? l : (t ? left : NEG_HALF);
+      };
+      // 0xff in each byte of rb equal to the row's base, four columns at once
+      uint32_t eq[(CPL + 3) / 4];
+#pragma unroll
+      for (int k = 0; k < (CPL + 3) / 4; ++k) eq[k] = __vcmpeq4(rb[k], 0x01010101u * nb);
+      auto dsub = [&](int c) {
+        return (eq[c >> 2] >> ((c & 3) * 8)) & 1 ? dsub_match : dsub_mismatch;
+      };
+      // per column: the best diagonal and vertical candidates over the
+      // predecessors, and (over two or more) the first predecessor reaching
+      // each (de | ve << 16)
+      int dmax[CPL], vmax[CPL], idx[CPL], up[CPL];
+      int left = load(pred0, up);
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        vmax[c] = up[c] + gap;
+        dmax[c] = (c ? up[c - 1] : left) + dsub(c);
+      }
+      if (np > 1) {
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) idx[c] = 0;
+        for (int e = 1; e < np; ++e) {
+          left = load(e < 32 ? __shfl_sync(FULL, mypred, e) : rp[e], up);
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) {
+            const int vv = up[c] + gap, dd = (c ? up[c - 1] : left) + dsub(c);
+            if (vv > vmax[c]) {
+              vmax[c] = vv;
+              idx[c] = (idx[c] & 0xffff) | (e << 16);
+            }
+            if (dd > dmax[c]) {
+              dmax[c] = dd;
+              idx[c] = (idx[c] & ~0xffff) | e;
+            }
+          }
+        }
+      }
+      SEG(0);
+      // horizontal closure: a prefix max over the lane, the warp and the
+      // earlier tiles
+      int run = NEG_ID;
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        run = max(run, max(dmax[c], vmax[c]));
+        row[c] = run;
+      }
+      const int incl = warp_incl_max(run);
+      int excl = __shfl_up_sync(FULL, incl, 1);
+      excl = lane ? max(excl, carry) : carry;
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) row[c] = max(excl, row[c]);
+      // the closed S' of the column left of the lane's first is the
+      // exclusive prefix (at column 0, NEG_ID, which no score equals)
+      const int hleft = excl;
+      if (t + 1 < ntiles) carry = max(carry, __shfl_sync(FULL, incl, 31));
+      // priority codes against the closed row: diagonal by edge order,
+      // vertical by edge order, horizontal; staged at the byte offset the
+      // row's destination has in its word
+      SEG(1);
+      uint8_t* stage = stage0 + (tiles_done & 1) * stage_bytes;
+      uint8_t* cdst = codes + (size_t(g) * LD + jt) * cb;
+      const int mis = int(uintptr_t(cdst) & 3);
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        const int x = row[c];
+        int code = x == (c ? row[c - 1] : hleft) ? HORIZ : BIGP;
+        if (np > 1) {
+          code = vmax[c] == x ? E + (idx[c] >> 16) : code;
+          code = dmax[c] == x ? (idx[c] & 0xffff) : code;
+        } else {
+          code = vmax[c] == x ? E : code;
+          code = dmax[c] == x ? 0 : code;
+        }
+        const int off = mis + (lane * CPL + c) * CB;
+        if (CB == 1)
+          stage[off] = uint8_t(code);
+        else
+          *reinterpret_cast<uint16_t*>(stage + off) = uint16_t(code);
+      }
+      int* srow = scores + size_t(g) * LD;
+      if (R) {
+        int* dst = ring + (g & (R - 1)) * RW;
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) dst[j0 + c] = row[c];
+      } else {
+#pragma unroll
+        for (int c = 0; c < CPL; ++c)
+          if (j0 + c <= rl) srow[j0 + c] = row[c];
+      }
+      SEG(2);
+      __syncwarp();  // the stage and the ring row are written
+      const int ncols = min(TW, rl + 1 - jt);
+      if (R && (meta & META_FAR)) {  // to the slab's score matrix, 32 columns at once
+        const int* src = ring + (g & (R - 1)) * RW + jt;
+        int* dst = srow + jt;
+#pragma unroll
+        for (int q = 0; q < CPL; ++q) {
+          const int c = lane + 32 * q;
+          if (c < ncols) dst[c] = src[c];
+        }
+      }
+      // the codes: whole words, and the bytes of the partial words at the ends
+      uint8_t* cw = cdst - mis;
+      const int nbytes = mis + ncols * cb;
+#pragma unroll
+      for (int q0 = 0; q0 < (TW * CB + 4 + 127) / 128; ++q0) {
+        const int lo = 4 * (lane + 32 * q0);
+        if (lo >= nbytes) continue;
+        if (lo >= mis && lo + 4 <= nbytes) {
+          *reinterpret_cast<uint32_t*>(cw + lo) = *reinterpret_cast<const uint32_t*>(stage + lo);
+        } else {
+#pragma unroll
+          for (int k = lo; k < lo + 4; ++k)
+            if (k >= mis && k < nbytes) cw[k] = stage[k];
+        }
+      }
+      SEG(3);
+      if (sink && t == rl_tile) {  // the first sink row with the highest score at column rl
+        int x = row[0];
+#pragma unroll
+        for (int c = 1; c < CPL; ++c)
+          if (c == rl_c) x = row[c];
+        x = __shfl_sync(FULL, x, rl_lane) + rl * gap;
+        if (x > best) {
+          best = x;
+          best_i = g;
+        }
+      }
+      SEG(4);
+    }
+  }
+  SEG_FLUSH();
+  __syncwarp();  // the codes are visible to the traceback
+  return best_i;
+}
+
+// Traceback from (best_i, rl) over the codes; ag/ar in backward order.
+// Returns the alignment length, or -1 when the walk does not reach (0, 0).
+// One lane.
+__device__ int traceback(const Win& w, int best_i, int rl) {
+  const int E = w.E, LD = w.L + 1, HORIZ = 2 * E, K = w.N + w.L;
+  int i = best_i, j = rl, k = 0;
+  const uint8_t* codes = w.codes;
+  const int *rpred = w.rpred, *sorted = w.sorted;
+  int *ag = w.ag, *ar = w.ar;
+  const bool wide = w.cb == 2;
+  for (int steps = 0; (i != 0 || j != 0) && steps < K + 2; ++steps) {
+    // the code, and with it the row's node and first predecessor (the most
+    // common move's), so that a step is one round trip
+    int code = HORIZ, p0 = 0, nid = 0;
+    const int* rp = rpred + size_t(i > 0 ? i - 1 : 0) * E;
+    if (i != 0) {
+      const size_t at = size_t(i) * LD + j;
+      code = wide ? int(reinterpret_cast<const uint16_t*>(codes)[at]) : int(codes[at]);
+      p0 = rp[0];
+      nid = sorted[i - 1];
+    }
+    int pi, pj;
+    if (code == HORIZ) {
+      pi = i;
+      pj = j - 1;
+    } else {
+      const int e = code % E;
+      pi = e ? rp[e] : p0;
+      pj = code < E ? j - 1 : j;
+    }
+    if (k < K) {
+      ag[k] = (pi == i) ? -1 : nid;
+      ar[k] = (pj == j) ? -1 : j - 1;
+    }
+    ++k;
+    i = pi;
+    j = pj;
+  }
+  return (i != 0 || j != 0) ? -1 : k;
+}
+
+// add_alignment<false, MSA> of the full band, by the warp: its lanes load
+// the walk's moves 32 at a time into `st` (shared memory), with what the
+// walk reads of each move's graph node (those loads do not depend on the
+// walk), and lane 0 walks them (add_steps, STAGED), so that a step that
+// lands on its graph node, most steps, waits for no device memory. Without
+// shared memory for the stage (st nullptr) lane 0 walks alone. Returns the
+// error in every lane.
+template <bool MSA>
+__device__ int add_walk(const Win& w, int aln_len, const uint8_t* s_read, const int* wts,
+                        int* node_count, int stamp, AddStage* st, unsigned* touched) {
+  const int lane = threadIdx.x & 31;
+  const int E = w.E;
+  Walk k{-1, 0, -1, *node_count, 0, -1};
+  if (st == nullptr) {
+    if (lane == 0) add_steps<false, MSA>(w, aln_len, aln_len - 1, -1, s_read, wts, stamp, k);
+  } else {
+    for (int q = lane; q < (w.N + 31) / 32; q += 32) touched[q] = 0;
+    bool stop = false;
+    for (int t0 = 0; t0 < aln_len && !stop; t0 += 32) {
+      if (t0 + lane < aln_len) {
+        const int p = aln_len - 1 - t0 - lane;
+        const int rp = w.ar[p];
+        st->rp[lane] = rp;
+        if (rp != -1) {
+          const int gid = w.ag[p];
+          st->gid[lane] = gid;
+          st->base[lane] = s_read[rp];
+          st->wt[lane] = wts[rp];
+          if (gid != -1) {
+            st->gbase[lane] = w.nodes[gid];
+            st->ic[lane] = w.in_count[gid];
+            st->oc[lane] = w.out_count[gid];
+#pragma unroll
+            for (int e = 0; e < ADD_PRE; ++e) {
+              if (e < E) {
+                st->ie[e][lane] = w.in_edges[size_t(gid) * E + e];
+                st->iw[e][lane] = w.in_w[size_t(gid) * E + e];
+              }
+            }
+          }
+        }
+      }
+      __syncwarp();  // the stage (and the bits cleared) before lane 0 walks it
+      if (lane == 0)
+        stop = add_steps<false, MSA, true>(w, aln_len, aln_len - 1 - t0,
+                                          max(aln_len - 1 - t0 - 32, -1), s_read, wts,
+                                          stamp, k, st, touched);
+      stop = __shfl_sync(FULL, int(stop), 0);  // lane 0 is done with the stage
+    }
+  }
+  __syncwarp();  // lane 0's writes
+  *node_count = __shfl_sync(FULL, k.nc, 0);
+  return __shfl_sync(FULL, k.err, 0);
+}
+
+// topsort's Kahn order (seeds by ascending id, FIFO expansion in out-edge
+// order) by the warp, with its working set in shared memory (`sm`, at
+// least topsort_cache_bytes(nc), N <= 65535): the warp first copies each
+// node's out-count and first out-edges there, all lanes at once; then one
+// lane per out-edge of the popped node decrements its target's count, and
+// a ballot enqueues the nodes that reached zero, in edge order. Popping a
+// node reads shared memory only (device memory for the out-edges past
+// OUT_CACHE). An out-list holds distinct nodes in a graph the walk left
+// without error, the only kind sorted. The same order, the same result.
+__device__ int topsort_cached(const Win& w, int nc, uint16_t* sm) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1;
+  const int E = w.E;
+  uint16_t* s_oc = sm;
+  uint16_t* s_out = s_oc + nc;
+  uint16_t* s_local = s_out + size_t(nc) * OUT_CACHE;
+  uint16_t* s_queue = s_local + nc;
+  int* const sorted = w.sorted;
+  int* const pos_of = w.pos_of;
+  const int* const out_edges = w.out_edges;
+  int tail = 0;
+  for (int n0 = 0; n0 < nc; n0 += 32) {
+    const int n = n0 + lane;
+    int ic = 1;
+    if (n < nc) {
+      ic = w.in_count[n];
+      const int oc = w.out_count[n];
+      int o[OUT_CACHE];
+#pragma unroll
+      for (int k = 0; k < OUT_CACHE; ++k) o[k] = k < E ? out_edges[size_t(n) * E + k] : 0;
+      s_local[n] = uint16_t(ic);
+      s_oc[n] = uint16_t(oc);
+#pragma unroll
+      for (int k = 0; k < OUT_CACHE; ++k) s_out[size_t(n) * OUT_CACHE + k] = uint16_t(o[k]);
+    }
+    const unsigned seeds = __ballot_sync(FULL, ic == 0);
+    if (ic == 0) {
+      const int at = tail + __popc(seeds & below);
+      s_queue[at] = uint16_t(n);
+      sorted[at] = n;
+      pos_of[n] = at;
+    }
+    tail += __popc(seeds);
+  }
+  __syncwarp();
+  for (int i = 0; i < tail; ++i) {
+    const int node = s_queue[i];
+    const int oc = s_oc[node];
+    for (int e0 = 0; e0 < oc; e0 += 32) {
+      const int e = e0 + lane;
+      int out = 0;
+      bool zero = false;
+      if (e < oc) {
+        out = e < OUT_CACHE ? s_out[size_t(node) * OUT_CACHE + e]
+                            : out_edges[size_t(node) * E + e];
+        const int l = s_local[out] - 1;
+        s_local[out] = uint16_t(l);
+        zero = l == 0;
+      }
+      const unsigned z = __ballot_sync(FULL, zero);
+      if (zero) {
+        const int at = tail + __popc(z & below);
+        s_queue[at] = uint16_t(out);
+        sorted[at] = out;
+        pos_of[out] = at;
+      }
+      tail += __popc(z);
+    }
+    __syncwarp();
+  }
+  return tail != nc ? 100 : 0;
+}
+
+// One row of the heaviest-edge pass (consensus_row) by the warp, one lane
+// per in-edge. The sequential scan from (s0, -1) takes an edge whose weight
+// passes s, or ties it with a source scored at least the taken one's: it
+// ends on the largest weight M if M > s0 (else on (s0, -1)), and among the
+// edges of weight M on the last of those whose source scores highest.
+__device__ void consensus_row_warp(const Win& w, const int* cscore, int nid, bool skip_cleared,
+                                   int* s_out, int* p_out) {
+  const int lane = threadIdx.x & 31;
+  const int E = w.E;
+  const int pc = w.in_count[nid];
+  const int* il = w.in_edges + size_t(nid) * E;
+  const int* iw = w.in_w + size_t(nid) * E;
+  int s = skip_cleared ? -1 : cscore[nid];
+  int p = -1, sp = 0;
+  for (int e0 = 0; e0 < pc; e0 += 32) {
+    const int e = e0 + lane;
+    int ew = INT_MIN, sb = INT_MIN, begin = -1;
+    if (e < pc) {
+      begin = il[e];
+      sb = cscore[begin];
+      ew = iw[e];
+      if (skip_cleared && sb == -1) ew = INT_MIN;
+    }
+    const int m = __reduce_max_sync(FULL, ew);
+    if (m == INT_MIN) continue;  // no edge of this chunk counts
+    const bool tie = ew == m;
+    const int sbm = __reduce_max_sync(FULL, tie ? sb : INT_MIN);
+    const unsigned at = __ballot_sync(FULL, tie && sb == sbm);
+    const int pick = __shfl_sync(FULL, begin, 31 - __clz(at));
+    if (m > s || (m == s && p != -1 && sp <= sbm)) {
+      s = m;
+      p = pick;
+      sp = sbm;
+    }
+  }
+  if (p != -1) s += sp;
+  *s_out = s;
+  *p_out = p;
+}
+
+// consensus() by the warp: the heaviest-path passes row by row
+// (consensus_row_warp), the branch completion's clearing one lane per
+// in-edge, the emission on lane 0. `cscore` is shared or device memory.
+// Returns the error (0 or 3) in every lane.
+__device__ int consensus_warp(const Win& w, int nc, int* cscore, uint8_t* cons, int* cov_out,
+                              int* length) {
+  const int lane = threadIdx.x & 31;
+  const int E = w.E, A = w.A;
+  for (int n = lane; n < nc; n += 32) {
+    cscore[n] = -1;
+    w.cpred[n] = -1;
+  }
+  __syncwarp();
+  // rows from sorted position `from` on, in order; the best (last at the
+  // highest score) from (mx_s, mx_i)
+  auto pass = [&](int from, bool skip, int& mx_s, int& mx_i) {
+    for (int g0 = from; g0 < nc; g0 += 32) {
+      const int mine = g0 + lane < nc ? w.sorted[g0 + lane] : 0;
+      for (int q = 0; q < 32 && g0 + q < nc; ++q) {
+        const int nid = __shfl_sync(FULL, mine, q);
+        int s, p;
+        consensus_row_warp(w, cscore, nid, skip, &s, &p);
+        __syncwarp();  // every lane has read the scores
+        if (lane == 0) {
+          cscore[nid] = s;
+          w.cpred[nid] = p;
+        }
+        __syncwarp();
+        if (mx_s <= s) {
+          mx_s = s;
+          mx_i = nid;
+        }
+      }
+    }
+  };
+  int max_score = -1, max_id = 0;
+  pass(0, false, max_score, max_id);
+  int loops = 0;
+  while (w.out_count[max_id] != 0 && loops < nc) {
+    const int pos = w.pos_of[max_id];
+    const int oc = w.out_count[max_id];
+    for (int oe = 0; oe < oc; ++oe) {
+      const int out = w.out_edges[size_t(max_id) * E + oe];
+      const int ic = w.in_count[out];
+      for (int ie = lane; ie < ic; ie += 32) {
+        const int iid = w.in_edges[size_t(out) * E + ie];
+        if (iid != max_id) cscore[iid] = -1;
+      }
+    }
+    __syncwarp();
+    int mxs = 0, mxi = 0;
+    pass(pos + 1, true, mxs, mxi);
+    max_id = mxi;
+    ++loops;
+  }
+  if (loops >= nc && loops > 0) return 3;
+  int k = 0;
+  if (lane == 0) {
+    int cur = max_id;
+    while (true) {
+      int c = w.cov[cur];
+      const int nal = w.al_count[cur];
+      for (int a = 0; a < nal; ++a) c += w.cov[w.al[size_t(cur) * A + a]];
+      if (k < w.N) {
+        cons[k] = uint8_t(w.nodes[cur]);
+        cov_out[k] = c;
+      }
+      ++k;
+      const int p = w.cpred[cur];
+      if (p == -1) break;
+      cur = p;
+    }
+  }
+  *length = __shfl_sync(FULL, k, 0);
+  return 0;
+}
+
+// At least POA_WIN_MIN_BLOCKS blocks of WIN_WARPS warps per SM (at most 128
+// registers a thread) for the consensus, one fewer for the MSA and graph
+// outputs, which spill at 128: the chain is latency-bound, so windows in
+// flight decide its time: 4 blocks (2112 windows on an H100) ran the covid
+// bin of 5448 windows in 41.4 ms against 50.7 ms at 3 (1584 windows;
+// experiments/torch_poa_window_check.py --min-blocks 3). ptxas reports no
+// spills at these bounds.
+#ifndef POA_WIN_MIN_BLOCKS
+#define POA_WIN_MIN_BLOCKS 4
+#endif
+// Full band, one warp per window, wpb windows a block. OUT 0 consensus
+// (cons, cov, len, err in o0..o3), 1 MSA (rows (B, S, N) uint8, msa_len, err
+// in o0..o2), 2 the graph (nodes, in_count, in_edges, in_w, node_count, err
+// in o0..o5). R score rows of the ring a window (0, 2, 4 or 8).
+template <int CPL, int OUT>
+__global__ void __launch_bounds__(WIN_WARPS * 32, OUT == 0 ? POA_WIN_MIN_BLOCKS
+                                                           : POA_WIN_MIN_BLOCKS - 1)
+poa_window_kernel(const uint8_t* __restrict__ seqs, const int* __restrict__ wts,
+                  const int* __restrict__ lens, const int* __restrict__ nseqs, void* o0,
+                  void* o1, void* o2, void* o3, void* o4, void* o5,
+                  uint8_t* __restrict__ scratch, long long slab_bytes, int w0, int nwin, int wpb,
+                  int S, int L, int N, int E, int A, int gap, int mismatch, int match, int R) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int i = blockIdx.x * wpb + warp;
+  if (i >= nwin) return;
+  const size_t b = size_t(w0) + i;
+  // Pointers and sizes are recomputed from the parameters where they are
+  // used rather than held across the NW, whose columns need the registers.
+  auto mine = [&]() { return smem + size_t(warp) * WarpSmem(L, CPL, R).bytes; };
+  auto ring_of = [&]() { return reinterpret_cast<int*>(mine() + WarpSmem(L, CPL, R).ring); };
+  auto ring_bytes = [&]() { return size_t(R) * WarpSmem(L, CPL, R).RW * 4; };
+  // the window's view of its slab, in shared memory: the chain reads a
+  // pointer where it uses it instead of holding two dozen in registers
+  __shared__ Win s_win[WIN_WARPS];
+  if (lane == 0)
+    s_win[warp] = slab_win(scratch + size_t(i) * size_t(slab_bytes),
+                           Layout(N, L, E, A, 0, OUT, S), N, L, E, A, S, false, OUT == 1);
+  __syncwarp();
+  const Win& w = s_win[warp];
+
+  for (int n = lane; n < N; n += 32) w.mark[n] = 0;  // reads are stamped 1..S-1
+  if (OUT == 0) {
+    for (int n = lane; n < N; n += 32) {
+      ((uint8_t*)o0)[b * N + n] = 0;
+      ((int*)o1)[b * N + n] = 0;
+    }
+  }
+  if (OUT == 1) {
+    for (size_t t = lane; t < size_t(S) * N; t += 32) ((uint8_t*)o0)[b * S * N + t] = '-';
+    for (size_t t = lane; t < size_t(N) * S; t += 32) w.seq_next[t] = -1;
+    for (int t = lane; t < S; t += 32) w.begin[t] = 0;
+    __syncwarp();  // before the backbone writes seq_next
+  }
+
+  // backbone (cudapoa_kernels.cuh:200-238)
+  const int len0 = lens[b * S];
+  for (int j = lane; j < len0; j += 32) {
+    const int* wwt = wts + b * S * L;
+    w.nodes[j] = seqs[b * S * L + j];
+    w.sorted[j] = j;
+    w.pos_of[j] = j;
+    w.in_count[j] = j == 0 ? 0 : 1;
+    w.out_count[j] = j == len0 - 1 ? 0 : 1;
+    w.al_count[j] = 0;
+    w.cov[j] = 1;
+    w.in_edges[size_t(j) * E] = j - 1;
+    w.out_edges[size_t(j) * E] = j + 1;
+    w.in_w[size_t(j) * E] = j == 0 ? wwt[0] : wwt[j - 1] + wwt[j];
+    if (OUT == 1 && j < len0 - 1) w.seq_next[size_t(j) * S] = j + 1;
+  }
+  __syncwarp();
+  const int ns = nseqs[b];
+  int nc = len0, err = 0;
+  PHASE_T0();
+  for (int s = 1; s < ns; ++s) {
+    if (nc >= N) {
+      err = 1;
+      break;
+    }
+    PHASE_MARK();
+    const int rl = lens[b * S + s];
+    uint8_t* s_read = mine() + WarpSmem(L, CPL, R).read;
+    for (int j = lane; j < rl; j += 32) s_read[j] = seqs[(b * S + s) * L + j];
+    __syncwarp();
+    int aln_len = 0;
+    {
+      const WarpSmem sm(L, CPL, R);
+      int* ring = ring_of();
+      uint8_t* stage = mine() + sm.stage;
+      const int best_i =
+          w.cb == 1 ? nw_warp<CPL, 1>(w, s_read, rl, nc, gap, mismatch, match, ring, R, sm.RW,
+                                      stage, int(sm.stage_bytes))
+                    : nw_warp<CPL, 2>(w, s_read, rl, nc, gap, mismatch, match, ring, R, sm.RW,
+                                      stage, int(sm.stage_bytes));
+      PHASE_ADD(0);
+      PHASE_COUNT(6, nc);
+      if (lane == 0) aln_len = traceback(w, best_i, rl);
+      aln_len = __shfl_sync(FULL, aln_len, 0);
+      __syncwarp();  // the moves are visible
+      PHASE_ADD(1);
+      PHASE_COUNT(7, max(aln_len, 0));
+      err = aln_len < 0 ? 3 : 0;
+    }
+    int* ring = ring_of();
+    // the add's stage and its N bits of landed nodes in the ring, where
+    // they fit; the sort's working set too (node ids in its 16 bits)
+    if (!err) {
+      const bool staged = !(window_paths(ring_bytes(), N, nc) & WIN_ADD_UNSTAGED);
+      err = add_walk<OUT == 1>(w, aln_len, s_read, wts + (b * S + s) * L, &nc, s,
+                               staged ? reinterpret_cast<AddStage*>(ring) : nullptr,
+                               reinterpret_cast<unsigned*>(ring + sizeof(AddStage) / 4));
+    }
+    PHASE_ADD(2);
+    if (!err) {
+      if (window_paths(ring_bytes(), N, nc) & WIN_TOPSORT_SCALAR) {
+        if (lane == 0) err = topsort(w, nc);
+        __syncwarp();  // lane 0's order
+        err = __shfl_sync(FULL, err, 0);
+      } else {
+        err = topsort_cached(w, nc, reinterpret_cast<uint16_t*>(ring));
+      }
+    }
+    PHASE_ADD(3);
+    __syncwarp();  // every lane is done with s_read and the ring
+    if (err) break;
+  }
+  PHASE_MARK();
+  if (OUT == 0) {
+    // the consensus scores in the ring where N fits it
+    int* ring = ring_of();
+    int length = 0;
+    if (!err)
+      err = consensus_warp(w, nc,
+                           window_paths(ring_bytes(), N, nc) & WIN_CSCORE_DEVICE ? w.cscore : ring,
+                           (uint8_t*)o0 + b * N, (int*)o1 + b * N, &length);
+    if (lane == 0) {
+      ((int*)o2)[b] = err ? 0 : length;
+      ((int*)o3)[b] = err;
+    }
+  } else if (OUT == 1) {
+    if (lane == 0) {
+      ((int*)o1)[b] = err ? 0 : msa_emit(w, nc, ns, N, (uint8_t*)o0 + b * S * N);
+      ((int*)o2)[b] = err;
+    }
+  } else {
+    // the graph, zero past the node count and each in-count, and all zero
+    // but err in a window that failed (torch_poa.export_graph)
+    const int gc = err == 0 ? nc : 0;
+    int* gn = (int*)o0 + b * N;
+    int* gic = (int*)o1 + b * N;
+    int* gie = (int*)o2 + b * N * E;
+    int* giw = (int*)o3 + b * N * E;
+    for (int n = lane; n < N; n += 32) {
+      const bool live = n < gc;
+      const int ic = live ? w.in_count[n] : 0;
+      gn[n] = live ? w.nodes[n] : 0;
+      gic[n] = ic;
+      for (int e = 0; e < E; ++e) {
+        gie[size_t(n) * E + e] = e < ic ? w.in_edges[size_t(n) * E + e] : 0;
+        giw[size_t(n) * E + e] = e < ic ? w.in_w[size_t(n) * E + e] : 0;
+      }
+    }
+    if (lane == 0) {
+      ((int*)o4)[b] = gc;
+      ((int*)o5)[b] = err;
+    }
+  }
+  PHASE_ADD(4);
+  PHASE_FLUSH();
+}
+
 // At least POA_MIN_BLOCKS (12) blocks per SM, so at most 40 registers a
-// thread: the kernel is latency-bound, and windows in flight beat spills. On
-// the covid workload (H100, experiments/torch_poa_occupancy.py, which builds
-// the kernel with -DPOA_MIN_BLOCKS=k) 12 ran 141 ms against 148 ms for 8
-// blocks (64 registers) and 190 ms for the compiler's own 96 (k = 0).
+// thread: the kernel is latency-bound, and windows in flight beat spills
+// (measured when this kernel also ran the full band, built with
+// -DPOA_MIN_BLOCKS=k: 12 blocks ran the covid workload in 141 ms against
+// 148 ms for 8 and 190 ms for k = 0).
 #ifndef POA_MIN_BLOCKS
 #define POA_MIN_BLOCKS 12
 #endif
@@ -863,18 +1677,16 @@ __device__ int msa_emit(const Win& w, int nc, int nseq, int Nrow, uint8_t* msa) 
 #else
 #define POA_LAUNCH_BOUNDS __launch_bounds__(NT)
 #endif
-// BAND 0 full, 1 static, 2 adaptive; OUT 0 consensus (cons, cov, len, err
-// in o0..o3), 1 MSA (rows (B, S, N) uint8, msa_len, err in o0..o2), 2 the
-// graph (nodes, in_count, in_edges, in_w, node_count, err in o0..o5; full
-// band only). caps (B,): each window's node cap, banded modes only.
+// The banded modes, one block per window: BAND 1 static, 2 adaptive; OUT 0
+// consensus (cons, cov, len, err in o0..o3), 1 MSA (rows (B, S, N) uint8,
+// msa_len, err in o0..o2). caps (B,): each window's node cap.
 template <int BAND, int OUT>
 __global__ void POA_LAUNCH_BOUNDS
 poa_consensus_kernel(const uint8_t* __restrict__ seqs, const int* __restrict__ wts,
                      const int* __restrict__ lens, const int* __restrict__ nseqs,
                      const int* __restrict__ caps, void* o0, void* o1, void* o2, void* o3,
-                     void* o4, void* o5, uint8_t* __restrict__ scratch, long long slab_bytes,
-                     int w0, int S, int L, int N, int E, int A, int gap, int mismatch,
-                     int match, int band_width) {
+                     uint8_t* __restrict__ scratch, long long slab_bytes, int w0, int S, int L,
+                     int N, int E, int A, int gap, int mismatch, int match, int band_width) {
   extern __shared__ uint8_t s_read[];
   __shared__ int s_wtot[NWARP];
   __shared__ int s_best, s_err, s_nc;
@@ -882,45 +1694,9 @@ poa_consensus_kernel(const uint8_t* __restrict__ seqs, const int* __restrict__ w
   const int tid = threadIdx.x;
   const size_t b = size_t(w0) + blockIdx.x;
   const Layout lay(N, L, E, A, BAND, OUT, S, band_alloc(BAND, band_width));
-  uint8_t* base = scratch + size_t(blockIdx.x) * size_t(slab_bytes);
-  Win w;
-  w.nodes = (int*)(base + lay.nodes);
-  w.in_count = (int*)(base + lay.in_count);
-  w.out_count = (int*)(base + lay.out_count);
-  w.al_count = (int*)(base + lay.al_count);
-  w.cov = (int*)(base + lay.cov);
-  w.sorted = (int*)(base + lay.sorted);
-  w.pos_of = (int*)(base + lay.pos_of);
-  w.local = (int*)(base + lay.local);
-  w.cscore = (int*)(base + lay.cscore);
-  w.cpred = (int*)(base + lay.cpred);
-  w.meta = (int*)(base + lay.meta);
-  w.mark = (int*)(base + lay.mark);
-  w.in_edges = (int*)(base + lay.in_edges);
-  w.in_w = (int*)(base + lay.in_w);
-  w.out_edges = (int*)(base + lay.out_edges);
-  w.rpred = (int*)(base + lay.rpred);
-  w.al = (int*)(base + lay.al);
-  w.ag = (int*)(base + lay.ag);
-  w.ar = (int*)(base + lay.ar);
-  w.scores = (int*)(base + lay.scores);
-  w.codes = base + lay.codes;
-  w.N = N;
-  w.L = L;
-  w.E = E;
-  w.A = A;
-  if (BAND != 0) {
-    w.bstart = (int*)(base + lay.bstart);
-    w.N = caps[b];  // the window's own node cap; the slab is sized for N
-  }
-  if (OUT == 1) {
-    w.seq_next = (int*)(base + lay.seq_next);
-    w.begin = (int*)(base + lay.begin);
-    w.col = (int*)(base + lay.col);
-    w.chk = (int*)(base + lay.chk);
-    w.stack = (int*)(base + lay.stack);
-    w.S = S;
-  }
+  Win w = slab_win(scratch + size_t(blockIdx.x) * size_t(slab_bytes), lay, N, L, E, A, S, true,
+                   OUT == 1);
+  w.N = caps[b];  // the window's own node cap; the slab is sized for N
 
   uint8_t* wcons = nullptr;
   int* wcov = nullptr;
@@ -948,10 +1724,10 @@ poa_consensus_kernel(const uint8_t* __restrict__ seqs, const int* __restrict__ w
   const int* wlen = lens + b * S;
   const int ns = nseqs[b];
 
-  // backbone (cudapoa_kernels.cuh:200-238); a banded window whose first
-  // read is longer than its cap fails here (cpu_reference.build_backbone)
+  // backbone (cudapoa_kernels.cuh:200-238); a window whose first read is
+  // longer than its cap fails here (cpu_reference.build_backbone)
   const int len0 = wlen[0];
-  const bool fits = BAND == 0 || len0 <= w.N;
+  const bool fits = len0 <= w.N;
   for (int i = tid; fits && i < len0; i += NT) {
     w.nodes[i] = wseq[i];
     w.sorted[i] = i;
@@ -979,19 +1755,13 @@ poa_consensus_kernel(const uint8_t* __restrict__ seqs, const int* __restrict__ w
     const int rl = wlen[s];
     for (int j = tid; j < rl; j += NT) s_read[j] = wseq[size_t(s) * L + j];
     __syncthreads();
-    int banded_len = 0;
-    if (BAND == 0)
-      nw_forward(w, s_read, rl, s_nc, gap, mismatch, match, s_wtot, &s_best);
-    else
-      banded_len = nw_banded<BAND>(w, s_read, rl, s_nc, gap, mismatch, match, band_width,
-                                   s_wtot, &s_best);
+    const int aln_len = nw_banded<BAND>(w, s_read, rl, s_nc, gap, mismatch, match, band_width,
+                                        s_wtot, &s_best);
     if (tid == 0) {
-      const int aln_len = BAND == 0 ? traceback(w, s_best, rl) : banded_len;
       int err = aln_len < 0 ? 3 : 0;
       int nc = s_nc;
       if (!err)
-        err = add_alignment<BAND != 0, OUT == 1>(w, aln_len, s_read, wwt + size_t(s) * L, &nc,
-                                                 s);
+        err = add_alignment<true, OUT == 1>(w, aln_len, s_read, wwt + size_t(s) * L, &nc, s);
       if (!err) err = topsort(w, nc);
       s_nc = nc;
       s_err = err;
@@ -999,66 +1769,147 @@ poa_consensus_kernel(const uint8_t* __restrict__ seqs, const int* __restrict__ w
     __syncthreads();  // also: thread 0 is done with s_read
     if (s_err) break;
   }
-  if (OUT == 0) {
-    if (tid == 0) {
-      int err = s_err, length = 0;
+  if (tid == 0) {
+    int err = s_err;
+    if (OUT == 0) {
+      int length = 0;
       if (!err) err = consensus(w, s_nc, wcons, wcov, &length);
       ((int*)o2)[b] = err ? 0 : length;
       ((int*)o3)[b] = err;
-    }
-  } else if (OUT == 1) {
-    if (tid == 0) {
-      const int err = s_err;
+    } else {
       ((int*)o1)[b] = err ? 0 : msa_emit(w, s_nc, ns, N, wmsa);
       ((int*)o2)[b] = err;
-    }
-  } else {
-    // the graph, zero past the node count and each in-count, and all zero
-    // but err in a window that failed (torch_poa.export_graph)
-    const bool ok = s_err == 0;
-    const int nc = ok ? s_nc : 0;
-    int* gn = (int*)o0 + b * N;
-    int* gic = (int*)o1 + b * N;
-    int* gie = (int*)o2 + b * N * E;
-    int* giw = (int*)o3 + b * N * E;
-    for (int n = tid; n < N; n += NT) {
-      const bool live = n < nc;
-      const int ic = live ? w.in_count[n] : 0;
-      gn[n] = live ? w.nodes[n] : 0;
-      gic[n] = ic;
-      for (int e = 0; e < E; ++e) {
-        gie[size_t(n) * E + e] = e < ic ? w.in_edges[size_t(n) * E + e] : 0;
-        giw[size_t(n) * E + e] = e < ic ? w.in_w[size_t(n) * E + e] : 0;
-      }
-    }
-    if (tid == 0) {
-      ((int*)o4)[b] = nc;
-      ((int*)o5)[b] = s_err;
     }
   }
 }
 
 template <int BAND, int OUT>
-int launch(const void* seqs, const void* wts, const void* lens, const void* nseqs,
-           const void* caps, void* o0, void* o1, void* o2, void* o3, void* o4, void* o5,
-           void* scratch, long long slab_bytes, int w0, int nwin, int S, int L, int N, int E,
-           int A, int gap, int mismatch, int match, int band_width, void* stream) {
+int launch_banded(const void* seqs, const void* wts, const void* lens, const void* nseqs,
+                  const void* caps, void* o0, void* o1, void* o2, void* o3, void* scratch,
+                  long long slab_bytes, int w0, int nwin, int S, int L, int N, int E, int A,
+                  int gap, int mismatch, int match, int band_width, cudaStream_t stream) {
   const size_t smem = align_up(size_t(L) > 0 ? size_t(L) : 1);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(poa_consensus_kernel<BAND, OUT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (e != cudaSuccess) return int(e);
   }
-  poa_consensus_kernel<BAND, OUT><<<nwin, NT, smem, (cudaStream_t)stream>>>(
+  poa_consensus_kernel<BAND, OUT><<<nwin, NT, smem, stream>>>(
       (const uint8_t*)seqs, (const int*)wts, (const int*)lens, (const int*)nseqs,
-      (const int*)caps, o0, o1, o2, o3, o4, o5, (uint8_t*)scratch, slab_bytes, w0, S, L, N, E, A,
-      gap, mismatch, match, band_width);
+      (const int*)caps, o0, o1, o2, o3, (uint8_t*)scratch, slab_bytes, w0, S, L, N, E, A, gap,
+      mismatch, match, band_width);
   return int(cudaGetLastError());
+}
+
+// The ring's rows a window of reads up to L bases gets: the most of 8, 4, 2
+// that keeps its shared memory within WARP_SMEM_BUDGET, else none.
+inline int ring_rows(int L, int cpl) {
+  for (int r = RING_MAX; r >= 2; r >>= 1)
+    if (WarpSmem(L, cpl, r).bytes <= size_t(WARP_SMEM_BUDGET)) return r;
+  return 0;
+}
+
+template <int CPL, int OUT>
+int launch_window(const void* seqs, const void* wts, const void* lens, const void* nseqs,
+                  void* const* o, void* scratch, long long slab_bytes, int w0, int nwin, int S,
+                  int L, int N, int E, int A, int gap, int mismatch, int match,
+                  cudaStream_t stream) {
+  const int R = ring_rows(L, CPL);
+  const size_t wb = WarpSmem(L, CPL, R).bytes;
+  int dev = 0, limit = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return int(e);
+  if (wb > size_t(limit)) return int(cudaErrorInvalidValue);  // a read too long for a warp
+  const int wpb = int(min(size_t(WIN_WARPS), size_t(limit) / wb));
+  e = cudaFuncSetAttribute(poa_window_kernel<CPL, OUT>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, int(wpb * wb));
+  if (e != cudaSuccess) return int(e);
+  poa_window_kernel<CPL, OUT><<<(nwin + wpb - 1) / wpb, wpb * 32, wpb * wb, stream>>>(
+      (const uint8_t*)seqs, (const int*)wts, (const int*)lens, (const int*)nseqs, o[0], o[1],
+      o[2], o[3], o[4], o[5], (uint8_t*)scratch, slab_bytes, w0, nwin, wpb, S, L, N, E, A, gap,
+      mismatch, match, R);
+  return int(cudaGetLastError());
+}
+
+// Windows of reads up to L bases the card holds at once in
+// poa_window_kernel<CPL, OUT>: its blocks an SM (registers, shared memory,
+// warps) x the SMs x the windows a block; 0 where a read is too long.
+template <int CPL, int OUT>
+int window_occupancy(int L) {
+  const size_t wb = WarpSmem(L, CPL, ring_rows(L, CPL)).bytes;
+  int dev = 0, limit = 0, sms = 0, blocks = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      wb > size_t(limit))
+    return 0;
+  const int wpb = int(min(size_t(WIN_WARPS), size_t(limit) / wb));
+  if (cudaFuncSetAttribute(poa_window_kernel<CPL, OUT>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, int(wpb * wb)) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, poa_window_kernel<CPL, OUT>,
+                                                    wpb * 32, wpb * wb) != cudaSuccess)
+    return 0;
+  return blocks * sms * wpb;
+}
+
+// Columns a lane: 9 (tiles of 288 columns) for reads up to 287 bases, else
+// 11 (352), in tiles past 351.
+template <int OUT>
+int launch_full(const void* seqs, const void* wts, const void* lens, const void* nseqs,
+                void* const* o, void* scratch, long long slab_bytes, int w0, int nwin, int S,
+                int L, int N, int E, int A, int gap, int mismatch, int match,
+                cudaStream_t stream) {
+  if (L + 1 <= 32 * 9)
+    return launch_window<9, OUT>(seqs, wts, lens, nseqs, o, scratch, slab_bytes, w0, nwin, S, L,
+                                 N, E, A, gap, mismatch, match, stream);
+  return launch_window<11, OUT>(seqs, wts, lens, nseqs, o, scratch, slab_bytes, w0, nwin, S, L,
+                                N, E, A, gap, mismatch, match, stream);
 }
 
 }  // namespace
 
 extern "C" {
+
+// Debug build only: copy the fifteen sums (five phases' cycles, windows,
+// NW rows, moves, five NW row segments' cycles, NW cells and predecessor
+// cells) into out and zero them.
+#ifdef POA_PHASE_CLOCKS
+int poa_phase_clocks(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_phase_clocks, sizeof(g_phase_clocks));
+  if (e == cudaSuccess) {
+    const unsigned long long zero[PHASE_COUNTERS] = {};
+    e = cudaMemcpyToSymbol(g_phase_clocks, zero, sizeof(zero));
+  }
+  return int(e);
+}
+#endif
+
+// Windows the full-band kernel with output `out` holds on the card at once
+// for reads up to L bases (0 if it cannot run them).
+int poa_windows_in_flight(int out, int L) {
+  const bool narrow = L + 1 <= 32 * 9;
+  if (out == 0) return narrow ? window_occupancy<9, 0>(L) : window_occupancy<11, 0>(L);
+  if (out == 1) return narrow ? window_occupancy<9, 1>(L) : window_occupancy<11, 1>(L);
+  return narrow ? window_occupancy<9, 2>(L) : window_occupancy<11, 2>(L);
+}
+
+// Score rows of the shared ring a full-band window with reads up to L bases
+// gets (8, 4, 2 or 0); farther predecessor rows are read from the slab.
+int poa_window_ring_rows(int L) {
+  return L + 1 <= 32 * 9 ? ring_rows(L, 9) : ring_rows(L, 11);
+}
+
+// The shared-memory paths (window_paths bits: 1 no score ring, 2 the add
+// unstaged, 4 topsort on one lane, 8 consensus scores in device memory) a
+// full-band window with reads up to L bases, node cap N and nc nodes takes.
+int poa_window_paths(int L, int N, int nc) {
+  const int cpl = L + 1 <= 32 * 9 ? 9 : 11, R = ring_rows(L, cpl);
+  return window_paths(size_t(R) * WarpSmem(L, cpl, R).RW * 4, N, nc);
+}
 
 // Bytes of one window's scratch slab (full-band consensus).
 long long poa_slab_bytes(int N, int L, int E, int A) {
@@ -1074,20 +1925,20 @@ long long poa_mode_slab_bytes(int band, int out, int N, int L, int E, int A, int
 
 // Launch windows [w0, w0 + nwin) of the full-band consensus on `stream`;
 // slab i of `scratch` serves window w0 + i. Returns cudaGetLastError()
-// after the launch.
+// after the launch (or the error of its set-up).
 int poa_consensus_launch(const void* seqs, const void* wts, const void* lens,
                          const void* nseqs, void* cons, void* cov, void* len, void* err,
                          void* scratch, long long slab_bytes, int w0, int nwin, int S, int L,
                          int N, int E, int A, int gap, int mismatch, int match,
                          void* stream) {
-  return launch<0, 0>(seqs, wts, lens, nseqs, nullptr, cons, cov, len, err, nullptr, nullptr,
-                      scratch, slab_bytes, w0, nwin, S, L, N, E, A, gap, mismatch, match, 0,
-                      stream);
+  void* const o[6] = {cons, cov, len, err, nullptr, nullptr};
+  return launch_full<0>(seqs, wts, lens, nseqs, o, scratch, slab_bytes, w0, nwin, S, L, N, E, A,
+                        gap, mismatch, match, (cudaStream_t)stream);
 }
 
 // The same for band kind `band` and output `out` (see poa_mode_slab_bytes),
 // every mode but the full-band consensus above; caps is each window's node
-// cap (banded modes); the outputs are o0..o5 as the kernel takes them.
+// cap (banded modes); the outputs are o0..o5 as the kernels take them.
 // Returns cudaGetLastError(), or cudaErrorInvalidValue for a mode that has
 // no instantiation here.
 int poa_mode_launch(int band, int out, const void* seqs, const void* wts, const void* lens,
@@ -1095,13 +1946,19 @@ int poa_mode_launch(int band, int out, const void* seqs, const void* wts, const 
                     void* o3, void* o4, void* o5, void* scratch, long long slab_bytes, int w0,
                     int nwin, int S, int L, int N, int E, int A, int gap, int mismatch,
                     int match, int band_width, void* stream) {
-#define POA_MODE(BAND, OUT)                                                              \
-  if (band == BAND && out == OUT)                                                        \
-    return launch<BAND, OUT>(seqs, wts, lens, nseqs, caps, o0, o1, o2, o3, o4, o5, scratch, \
-                             slab_bytes, w0, nwin, S, L, N, E, A, gap, mismatch, match,    \
-                             band_width, stream);
-  POA_MODE(0, 1)
-  POA_MODE(0, 2)
+  const cudaStream_t st = (cudaStream_t)stream;
+  void* const o[6] = {o0, o1, o2, o3, o4, o5};
+  if (band == 0 && out == 1)
+    return launch_full<1>(seqs, wts, lens, nseqs, o, scratch, slab_bytes, w0, nwin, S, L, N, E,
+                          A, gap, mismatch, match, st);
+  if (band == 0 && out == 2)
+    return launch_full<2>(seqs, wts, lens, nseqs, o, scratch, slab_bytes, w0, nwin, S, L, N, E,
+                          A, gap, mismatch, match, st);
+#define POA_MODE(BAND, OUT)                                                                 \
+  if (band == BAND && out == OUT)                                                           \
+    return launch_banded<BAND, OUT>(seqs, wts, lens, nseqs, caps, o0, o1, o2, o3, scratch,  \
+                                    slab_bytes, w0, nwin, S, L, N, E, A, gap, mismatch,     \
+                                    match, band_width, st);
   POA_MODE(1, 0)
   POA_MODE(1, 1)
   POA_MODE(2, 0)

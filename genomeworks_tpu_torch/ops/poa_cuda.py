@@ -1,12 +1,13 @@
-"""CUDA kernel for the full POA chain, one thread block per window — the
-counterpart of genomeworks_tpu/ops/poa_pallas.py (``poa_consensus_pallas``)
-in all its modes: full band, static band and adaptive band, each with
-consensus or MSA output, and the full-band graph export behind
-``PoaBatch.get_graphs``.
+"""CUDA kernels for the full POA chain of each window — the counterpart of
+genomeworks_tpu/ops/poa_pallas.py (``poa_consensus_pallas``) in all its
+modes: full band (one warp per window), static band and adaptive band (one
+thread block per window), each with consensus or MSA output, and the
+full-band graph export behind ``PoaBatch.get_graphs``.
 
-The kernel source is ``csrc/poa_consensus.cu``, one template instantiated
-per mode. Its plain PyTorch versions are ``poa/torch_poa.poa_consensus_plain``,
-``poa_msa_plain`` and ``poa_graph_plain`` (full band) and
+The kernel source is ``csrc/poa_consensus.cu``, a template per kernel
+instantiated per mode. Its plain PyTorch versions are
+``poa/torch_poa.poa_consensus_plain``, ``poa_msa_plain`` and
+``poa_graph_plain`` (full band) and
 ``poa/banded_plain.poa_banded_plain`` and ``poa_msa_banded_plain`` (static
 and adaptive band). The kernel runs at the caller's full caps (node caps,
 E edges and A aligned nodes per node) and, in the banded modes, with room
@@ -27,18 +28,22 @@ from genomeworks_tpu_torch.poa.banded import (
 )
 
 SOURCE = "poa_consensus.cu"
-#: scratch the wrapper may hold at once; a batch runs in chunks of windows
-#: whose slabs fit in it
-SCRATCH_BYTES = 4 << 30
-#: priority codes are stored as uint8 and reach 3E + 1
-MAX_EDGES = 84
+#: scratch the wrapper may hold at once, at most: half the card's free
+#: memory up to this cap; a batch runs in chunks of windows whose slabs fit
+#: in it. 16 GiB holds every covid bin in one launch (5448 windows of 1.8
+#: MB), so the card's thousands of warps fill from one launch and a launch's
+#: ragged end comes once.
+SCRATCH_BYTES = 16 << 30
+#: the full-band priority codes reach 3E + 1 and are stored in 16 bits past
+#: E = 84 (8 bits up to it), so E can reach (65535 - 1) / 3
+MAX_EDGES = 21844
 #: the kernel's band kinds and outputs (csrc/poa_consensus.cu)
 BANDS = {"full": 0, "static": 1, "adaptive": 2}
 OUTPUTS = {"consensus": 0, "msa": 1, "graph": 2}
 #: launches per instantiation ("static_msa", ...); the wrappers' own
 #: ``launches`` count them all
 launches_by_mode: dict[str, int] = {}
-#: windows in flight per launch of the last call (the chunk size)
+#: windows per launch of the last call (the chunk size)
 last_chunk = 0
 
 _lib = None
@@ -59,6 +64,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     )
     lib.poa_mode_launch.restype = ctypes.c_int
+    lib.poa_windows_in_flight.argtypes = [ctypes.c_int] * 2
+    lib.poa_windows_in_flight.restype = ctypes.c_int
+    lib.poa_window_ring_rows.argtypes = [ctypes.c_int]
+    lib.poa_window_ring_rows.restype = ctypes.c_int
+    lib.poa_window_paths.argtypes = [ctypes.c_int] * 3
+    lib.poa_window_paths.restype = ctypes.c_int
     return lib
 
 
@@ -226,11 +237,24 @@ def instance_name(band: str, output: str) -> str:
     return band if output == "consensus" else f"{band}_{output}"
 
 
+def code_bytes(E: int) -> int:
+    """Bytes of a full-band priority code (``code_bytes`` in the source)."""
+    return 1 if 3 * E + 1 <= 255 else 2
+
+
+def chunk_windows(B: int, slab: int, dev) -> int:
+    """Windows a launch takes: as many of B as the scratch holds slabs of
+    ``slab`` bytes (half the card's free memory, at most SCRATCH_BYTES), at
+    least one."""
+    free = torch.cuda.mem_get_info(dev)[0]
+    return max(1, min(B, min(SCRATCH_BYTES, free // 2) // slab))
+
+
 def _launch(lib, seqs, wts, lens, nseqs, N, E, A, gap, mismatch, match, band_width=0,
             adaptive=False, caps=None, output="consensus"):
     """Allocate outputs and scratch and launch ``lib``'s kernel for the
-    mode on the current stream, in chunks of windows whose slabs fit
-    SCRATCH_BYTES."""
+    mode on the current stream, in chunks of windows whose slabs fit the
+    scratch (:func:`chunk_windows`)."""
     global last_chunk
     B, S, L = seqs.shape
     dev = seqs.device
@@ -257,7 +281,7 @@ def _launch(lib, seqs, wts, lens, nseqs, N, E, A, gap, mismatch, match, band_wid
     else:
         slab = lib.poa_mode_slab_bytes(BANDS[band], OUTPUTS[output], N, L, E, A, S,
                                        band_alloc(band_width, adaptive))
-    chunk = max(1, min(B, SCRATCH_BYTES // slab))
+    chunk = chunk_windows(B, slab, dev)
     last_chunk = chunk
     scratch = torch.empty(chunk * slab, dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -278,7 +302,7 @@ def _launch(lib, seqs, wts, lens, nseqs, N, E, A, gap, mismatch, match, band_wid
                 gap, mismatch, match, band_width, stream,
             )
         if rc != 0:
-            raise RuntimeError(f"poa_consensus_kernel<{name}> launch failed: CUDA error {rc}")
+            raise RuntimeError(f"POA kernel <{name}> launch failed: CUDA error {rc}")
         _WRAPPER[output].launches += 1
         launches_by_mode[name] = launches_by_mode.get(name, 0) + 1
     return tuple(outs)

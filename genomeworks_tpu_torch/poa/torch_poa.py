@@ -233,8 +233,9 @@ def nw_batched(state, read, read_len, active, gap: int, mismatch: int,
 def nw_forward(state, read, read_len, active, gap: int, mismatch: int,
                match: int, work: dict | None = None):
     """The forward pass of :func:`nw_batched`: returns (codes (B, N+1, L+1)
-    int16, the priority code of every cell, row 0 unused; best_i (B,), the
-    first sink row with the highest score at column ``read_len``)."""
+    int16 (int32 past E = 10922), the priority code of every cell, row 0
+    unused; best_i (B,), the first sink row with the highest score at
+    column ``read_len``)."""
     st = state
     B, N = st["nodes"].shape
     E = st["in_edges"].shape[2]
@@ -256,7 +257,8 @@ def nw_forward(state, read, read_len, active, gap: int, mismatch: int,
         work["pred_cells"] = work.get("pred_cells", 0) + int((npred * cols).sum())
 
     scores = torch.empty((B, N + 1, L + 1), dtype=torch.int32, device=dev)
-    codes = torch.empty((B, N + 1, L + 1), dtype=torch.int16, device=dev)
+    codes = torch.empty((B, N + 1, L + 1), dtype=torch.int16 if BIGP < 1 << 15 else torch.int32,
+                        device=dev)
     scores[:, 0, :] = slope
     e_idx = torch.arange(emax, device=dev, dtype=torch.int32)
     bb = bi[:, None]
@@ -287,8 +289,8 @@ def nw_forward(state, read, read_len, active, gap: int, mismatch: int,
         best = torch.minimum(best, torch.where(horiz, HORIZ, BIGP))
         code0 = torch.where(use & (c0 == row[:, :1]), E + e_idx[None, :], BIGP).amin(dim=1)
         scores[:, gp + 1] = row
-        codes[:, gp + 1, 0] = code0.to(torch.int16)
-        codes[:, gp + 1, 1:] = best.to(torch.int16)
+        codes[:, gp + 1, 0] = code0.to(codes.dtype)
+        codes[:, gp + 1, 1:] = best.to(codes.dtype)
 
     # traceback start: first max at column read_len among sink rows
     col = scores.gather(2, read_len.long()[:, None, None].expand(B, N + 1, 1))[:, 1:, 0]

@@ -130,6 +130,65 @@ def test_banded_and_msa_modes_match_plain_on_gpu(band_width, adaptive, msa):
     assert 0 in out[-1].tolist()
 
 
+WINDOW_EDGE_SETS = ["lane-edges", "tile-edges", "ring", "long", "wide-lists",
+                    "empty-weighted", "E100", "E130", "2kb", "no-ring"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("output", ["consensus", "msa", "graph"])
+@pytest.mark.parametrize("case", WINDOW_EDGE_SETS)
+def test_full_band_edge_sets_match_plain_on_gpu(case, output):
+    """The full-band kernel (a warp per window) in each of its outputs
+    against its plain version on the edge sets of its warp layout
+    (``chip_smoke.window_edge_sets``): read lengths at a lane's and a tile's
+    edges, reads of 640 bases in two tiles, predecessors at the shared
+    ring's last distance and past it, lists past 32 slots, an empty later
+    read with weights 0-9, E = A = 100 and 130 (16-bit codes), reads of
+    2000 bases (the sort and the consensus scores past the shared memory)
+    and of 2600 (no score ring, the add unstaged); each set must reach what
+    it names."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc")
+    import chip_smoke
+    from genomeworks_tpu_torch.ops import poa_cuda
+
+    label, windows, weights, max_nodes, E, A, want = chip_smoke.window_edge_sets(
+        np.random.default_rng(6))[case]
+    seqs, wts, lens, nseqs, N = torch_poa.pack_windows(windows, weights, max_nodes)
+    cpu = [torch.from_numpy(a) for a in (seqs, wts, lens, nseqs)]
+    fn = {"consensus": poa_cuda.poa_consensus_cuda, "msa": poa_cuda.poa_msa_cuda,
+          "graph": poa_cuda.poa_graph_cuda}[output]
+    launches = fn.launches
+    out = fn(*(a.cuda() for a in cpu), N=N, E=E, A=A)
+    ref = fn(*cpu, N=N, E=E, A=A)
+    torch.cuda.synchronize()
+    assert fn.launches == launches + 1
+    for a, b in zip(out, ref):
+        assert torch.equal(a.cpu(), b)
+    if output == "consensus":
+        _, *prefix = chip_smoke.graph_prefix_facts((case, windows, N, E, A))
+        facts = chip_smoke.window_facts(windows, N, E, poa_cuda.load_library(), prefix)
+        assert want <= facts, sorted(want - facts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,L", [(768, 256), (1536, 299), (64, 9)])
+def test_slab_grows_only_by_the_codes(N, L):
+    """The library's full-band slab: from E = 84 to 85, where the codes
+    widen to two bytes, it grows by what each step of E adds (the (N, E)
+    and (N, A) lists, steady for N a multiple of 64 in 256-byte aligned
+    arrays) and by the code matrix's second byte alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc")
+    from genomeworks_tpu_torch.ops import poa_cuda
+
+    slab = poa_cuda.load_library().poa_slab_bytes
+    step = [slab(N, L, E + 1, E + 1) - slab(N, L, E, E) for E in (49, 50, 82, 83, 84, 85, 86)]
+    assert len(set(step[:4])) == 1 and step[5] == step[6] == step[0]
+    cells = (N + 1) * (L + 1)
+    assert step[4] - step[0] == (2 * cells + 255) // 256 * 256 - (cells + 255) // 256 * 256
+
+
 @pytest.mark.cuda
 def test_graph_export_matches_plain_on_gpu():
     """The full-band graph export (what PoaBatch.get_graphs reads) against

@@ -284,8 +284,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         poa_consensus_cuda(seqs.transpose(1, 2).contiguous().transpose(1, 2), wts, lens,
                            nseqs, **kw)
-    with pytest.raises(ValueError):
-        poa_consensus_cuda(seqs, wts, lens, nseqs, N=N, E=85, A=50)
+    with pytest.raises(ValueError):  # 3E + 1 past the kernel's 16-bit codes
+        poa_consensus_cuda(seqs, wts, lens, nseqs, N=N, E=21845, A=50)
     with pytest.raises(ValueError):
         poa_consensus_cuda(seqs, wts, lens, torch.zeros_like(nseqs), **kw)
     with pytest.raises(ValueError):
