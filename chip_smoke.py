@@ -29,27 +29,36 @@ Phases, each of which fails the run (nonzero exit, no result line):
    with an empty first read is refused before any launch. Kernel times are
    CUDA events around the launch alone, not the wrapper's input checks,
    printed beside the block-per-window kernel's on the same covid windows.
-2b. the five lockstep kernels (``ops/poa_lockstep_cuda.py``) vs their
-   plain versions (``poa/lockstep_plain.py``) on the card, read by read:
-   each phase's kernel and plain version on clones of one graph state must
-   leave equal outputs (codes, best_i, ag/ar/klen, cons/cov/length/err)
-   and equal whole states; sets: random unit and weighted windows, a ring
-   of D = 4 (status 5), 16 reads at high error (edge lists, 6), the node
-   cap (1), and the first 256 windows of the largest covid bucket in their
-   first 4 reads; and the edge cases of the NW's and add's warp layouts
-   (``lockstep_edge_sets``: read lengths at the edges of a lane's columns,
-   the widest plan, predecessors at the shared-memory ring's last distance
-   and past it, at D and past it, a clique and edge lists filled to their
-   caps and past them, an empty later read, weights 0-9), each of which
-   must reach the statuses, distances and full lists it names.
+2b. the lockstep kernels (``ops/poa_lockstep_cuda.py``) vs their plain
+   versions (``poa/lockstep_plain.py``) on the card, read by read: each
+   phase's kernel (the NW, the single-phase traceback, add and topsort of
+   ``lk_read_kernel``, the consensus) and plain version on clones of one
+   graph state must leave equal outputs (codes, best_i, ag/ar/klen,
+   cons/cov/length/err) and equal whole states, and the fused
+   ``read_lockstep`` on a third clone of the state the NW left must leave
+   the state and klen of the plain traceback, add and topsort; sets:
+   random unit and weighted windows, a ring of D = 4 (status 5), 16 reads
+   at high error (edge lists, 6), the node cap (1), and the first 256
+   windows of the largest covid bucket in their first 4 reads; and the
+   edge cases of the warp layouts (``lockstep_edge_sets``: read lengths at
+   the edges of a lane's columns, the widest plan (N = 640), predecessors
+   at the shared-memory ring's last distance and past it, at D and past
+   it, a clique and in- and out-edge lists filled to their caps and past
+   them, an empty later read, weights 0-9; walks whose speculation misses
+   at once and never misses; a short K, whose walks end past K or fail
+   (status 3) and whose graphs then get a cycle (100); a bucket larger
+   than the windows the fused kernel holds at once), each of which must
+   reach the statuses, distances, full lists and facts it names.
 3. POA main paths, each with every count set to 0 just before and read just
    after: (a) the default path, all covid windows through
    ``get_multi_batch_sizes`` and ``PoaBatch(device="cuda")``, which takes
    the lockstep tier for bins of 64 windows or more and the per-window
    kernel for the rest and for the tier's re-runs: every status success,
-   every consensus equal to its golden line, all six kernels launched, no
-   plain version called; it prints the tier counts (served / overflow /
-   unserved), the wall and windows/s; (b) slice 1's path, the same windows
+   every consensus equal to its golden line; each of the tier's reads one
+   NW and one fused ``read_lockstep`` launch (45 each), the single-phase
+   traceback, add and topsort none, the per-window kernel and the
+   consensus launched; no plain version called; it prints the tier counts
+   (served / overflow / unserved), the wall and windows/s; (b) slice 1's path, the same windows
    through ``poa_batch_consensus(..., use_lockstep=False)`` per bin: golden,
    the per-window kernel alone, its wall and windows/s; then each path once
    under ``torch.profiler``: the device's busy share of the wall and the
@@ -70,10 +79,14 @@ Phases, each of which fails the run (nonzero exit, no result line):
 6. each aligner kernel alone at the main path's first-pass shapes, against
    its plain version (bit for bit) and its bound.
 6b. each lockstep kernel at the largest covid bucket's shapes: CUDA events
-   around every launch of the bucket's chain and device time by kernel
-   under ``torch.profiler``, with the work the run's data needs for the
-   bound; the plain versions against the kernels on the bucket's first 256
-   windows at read 1 (consensus after the whole build).
+   around every launch of the bucket's chain, once with the fused
+   ``read_lockstep`` (the main path's) and once with the single-phase
+   traceback, add and topsort, and device time by kernel under
+   ``torch.profiler`` for both, with the work the run's data needs for the
+   bound; the windows the fused kernel holds on the card at once and the
+   waves each covid bucket takes; the plain versions against the kernels
+   on the bucket's first 256 windows at read 1 (consensus after the whole
+   build).
 9. the banded and MSA modes of the per-window kernel (slice 4: the static-
    and adaptive-band instantiations with consensus and MSA output, full-band
    MSA and the full-band graph export):
@@ -727,10 +740,20 @@ LK_REPLACES = {
     "add_lockstep": "genomeworks_tpu/ops/poa_lockstep_pallas.py:820",
     "topsort_lockstep": "genomeworks_tpu/ops/poa_lockstep_pallas.py:960",
     "consensus_lockstep": "genomeworks_tpu/ops/poa_lockstep_pallas.py:1206",
+    # the traceback, add and topsort of a read in one launch: rows 2, 3 and 4
+    "read_lockstep": "genomeworks_tpu/ops/poa_lockstep_pallas.py:538",
 }
-LK_DEVICE_NAME = {"nw_lockstep": "lk_nw_kernel", "tb_lockstep": "lk_tb_kernel",
-                  "add_lockstep": "lk_add_kernel", "topsort_lockstep": "lk_topsort_kernel",
-                  "consensus_lockstep": "lk_consensus_kernel"}
+LK_ALSO_REPLACES = ["genomeworks_tpu/ops/poa_lockstep_pallas.py:820",
+                    "genomeworks_tpu/ops/poa_lockstep_pallas.py:960"]
+LK_DEVICE_NAME = {"nw_lockstep": "lk_nw_kernel", "tb_lockstep": "lk_read_kernel<1>",
+                  "add_lockstep": "lk_read_kernel<2>", "topsort_lockstep": "lk_read_kernel<4>",
+                  "consensus_lockstep": "lk_consensus_kernel",
+                  "read_lockstep": "lk_read_kernel<7>"}
+#: the single-phase instantiations: off the main path, which runs them fused
+LK_ALONE = ("tb_lockstep", "add_lockstep", "topsort_lockstep")
+#: the covid default path's reads through the lockstep tier: one NW and one
+#: fused launch each
+LK_MAIN_READS = 45
 # Bytes the walks touch, per step or node (each read once, each write once):
 # a traceback step reads a code byte and a row's node id, in-count, in-edge
 # and position and writes ag and ar (25 bytes); an add step reads ag and ar,
@@ -741,8 +764,11 @@ LK_DEVICE_NAME = {"nw_lockstep": "lk_nw_kernel", "tb_lockstep": "lk_tb_kernel",
 # node's rank, in-count, score and writes score and predecessor (16), per
 # in-edge the source, weight and score (12), per emitted base its node,
 # coverage and counts and writes base and coverage (13). Each step or edge
-# costs about 12 int32 operations; the NW counts as nw_ops.
-TB_STEP_BYTES, ADD_STEP_BYTES = 25, 40
+# costs about 12 int32 operations; the NW counts as nw_ops. The fused read
+# hands the moves from its traceback to its add in shared memory, so a walk
+# step of it moves the two phases' bytes less the ag/ar writes of the one
+# and the ag/ar reads of the other (MOVE_BYTES each): 25 - 8 + 40 - 8 = 49.
+TB_STEP_BYTES, ADD_STEP_BYTES, MOVE_BYTES = 25, 40, 8
 NODE_BYTES, EDGE_BYTES, EMIT_BYTES = 16, 12, 13
 WALK_OPS = 12
 
@@ -755,7 +781,8 @@ def lockstep_modules():
               "tb_lockstep": lockstep_plain.tb_lockstep_plain,
               "add_lockstep": lockstep_plain.add_lockstep_plain,
               "topsort_lockstep": lockstep_plain.topsort_lockstep_plain,
-              "consensus_lockstep": lockstep_plain.consensus_lockstep_plain}
+              "consensus_lockstep": lockstep_plain.consensus_lockstep_plain,
+              "read_lockstep": lockstep_plain.read_lockstep_plain}
     kernels = {k.__name__: k for k in lk.KERNELS}
     return lockstep, kernels, plains
 
@@ -792,10 +819,50 @@ def pred_distances(state, act):
 NW_RING_ROWS = 4
 
 
+def tb_spec_facts(state, codes, best_i, read_len, act):
+    """What the fused traceback's speculation meets on these walks (the
+    state the NW left, its codes and best_i): "tb misses at once" where a
+    walk's first move is not the one guessed (the move to the row's first
+    predecessor, diagonally; vertically in column 0; horizontally in row
+    0), "tb never misses" where every move of a walk of 32 or more is."""
+    st = {k: v.cpu().numpy() for k, v in state.items()}
+    codes, best_i, read_len = codes.cpu().numpy(), best_i.cpu().numpy(), read_len.cpu().numpy()
+    act = act.cpu().numpy()
+    B, N = st["nodes"].shape
+    E = st["in_edges"].shape[2]
+    facts = set()
+    for b in range(B):
+        if not act[b] or st["error"][b] != 0:
+            continue
+
+        def pred(i, e):  # the row a move from graph row i through slot e reaches
+            nid = min(max(st["sorted"][b, i - 1], 0), N - 1)
+            if st["in_count"][b, nid] == 0:
+                return 0
+            return st["pos_of"][b, min(max(st["in_edges"][b, nid, e], 0), N - 1)] + 1
+
+        i, j, k, misses = int(best_i[b]), int(read_len[b]), 0, []
+        while (i or j) and k < 4 * N:
+            guess = (0, j - 1) if i == 0 else (pred(i, 0), max(j - 1, 0))
+            code = 2 * E if i == 0 else int(
+                codes[b, min(max(i - 1, 0), N - 1), min(max(j, 0), codes.shape[2] - 1)])
+            if code == 2 * E:
+                i, j = i, j - 1
+            else:
+                i, j = pred(i, code % E), j - 1 if code < E else j
+            misses.append((i, j) != guess)
+            k += 1
+        if misses and misses[0]:
+            facts.add("tb misses at once")
+        if len(misses) >= 32 and not any(misses):
+            facts.add("tb never misses")
+    return facts
+
+
 def lockstep_edge_sets(rng):
-    """The lockstep NW's and add's edge cases, for phase 2b and the card
-    tests: {key: (label, windows, weights, lockstep_compare kwargs, what
-    the chain must reach: the marks lockstep_compare adds to ``seen``)}."""
+    """The lockstep kernels' edge cases, for phase 2b and the card tests:
+    {key: (label, windows, weights, lockstep_compare kwargs, what the
+    chain must reach: the marks lockstep_compare adds to ``seen``)}."""
     from genomeworks_tpu_torch.poa import lockstep
 
     def rand(n):
@@ -824,7 +891,7 @@ def lockstep_edge_sets(rng):
     # Lp = 328, 11 columns a lane
     wide = copies((320, 300, 310, 290), n=4)
     sets["widest"] = ("reads of 290-320 bases, the plan of L = 320", wide, None,
-                      {"plan": lockstep.bucket_plan(wide)}, {"status 0"})
+                      {"plan": lockstep.bucket_plan(wide)}, {"status 0", "N = 640"})
     # an insertion of k bases that match nothing puts the backbone edge
     # around it at distance k + 1, a deletion of k the read's edge over it:
     # distances C, C + 1, D and D + 1 (status 5) at D = 8
@@ -852,7 +919,8 @@ def lockstep_edge_sets(rng):
     caps = [clique, clique[:8] + [column(8, letters[7])] + clique[8:], ins,
             ins[:7] + [t[:30] + "W" + t[30:]] + ins[7:]]
     sets["caps"] = ("a clique filled to A - 1 and past it, edge lists filled to E and past it",
-                    caps, None, {}, {"status 0", "status 6", "A - 1 full", "E full"})
+                    caps, None, {}, {"status 0", "status 6", "A - 1 full", "E full",
+                                     "out E full"})
     # caps past the lockstep tier's: 40 one-base insertions before one base
     # (an in-list of 41 slots), then a column of 41 bases (a clique past A - 1
     # = 39, status 6) at E = 48, A = 40: in-edge slots past 8 in the NW's
@@ -867,19 +935,50 @@ def lockstep_edge_sets(rng):
     ws = [w[:2] + [""] + w[2:] for w in ws]
     wts = [[rng.integers(0, 10, size=len(x)).astype(np.int32) for x in w] for w in ws]
     sets["empty-weighted"] = ("an empty later read, weights 0-9", ws, wts, {}, {"status 0"})
+    # the traceback's speculation: reads equal to the backbone walk along
+    # first predecessors only; bases inserted at a read's end make the
+    # walk's first move horizontal, where a diagonal was guessed; at its
+    # start, the last moves (in row 0, where a horizontal move is guessed)
+    spec = []
+    for k in (40, 90, 150):
+        t = rand(k)
+        spec.append([t, t, t, t])
+        spec.append([t, t + "GATTACA", "CAT" + t, t + "AC", t])
+    sets["spec"] = ("walks whose speculation misses at once and never misses", spec, None,
+                    {"spec": True}, {"status 0", "tb misses at once", "tb never misses"})
+    # K = 58 against walks of 56-62 moves (reads equal to backbones of
+    # 56-62 bases): walks past K (klen K + 1 and K + 2: the add reads move
+    # K - 1 again, its edge to itself makes a cycle, status 100) and walks
+    # that do not end within K + 2 moves (status 3)
+    short = [[t, t, t] for t in (rand(k) for k in range(56, 63))]
+    sets["short-walk"] = ("K = 58 against walks of 56-62 moves", short, None,
+                          {"plan": (128, 128, 64, 58)},
+                          {"status 0", "status 3", "status 100", "klen past K"})
+    # more windows than the fused kernel holds on the card at once at the
+    # widest plan (N = 640: 1584 windows at 24 N bytes each)
+    many = copies([int(x) for x in rng.integers(30, 60, 2000)], n=2)
+    sets["waves"] = ("2000 windows at N = 640, more than one wave", many, None,
+                     {"plan": (640, 128, 64, lockstep.walk_len(640, 60))},
+                     {"status 0", "more than one wave"})
     return sets
 
 
 def lockstep_compare(name, windows, weights, dev, max_nodes=None, D=None, reads=None, plan=None,
-                     seen=None, caps=None):
+                     seen=None, caps=None, spec=False):
     """The chain of one bucket, read by read: each phase's kernel and plain
     version on clones of one state must give equal outputs and equal whole
-    states (codes prefilled alike, so every byte compares). Returns the
+    states (codes prefilled alike, so every byte compares), and the fused
+    ``read_lockstep`` on a clone of the state the NW left must give the
+    state and klen of the plain traceback, add and topsort. Returns the
     statuses the kernels left. Adds to ``seen`` what the chain reached:
     "d = k" for each predecessor distance an NW read, "status s" for each
-    status, "E full" and "A - 1 full" where a window ends without an error
-    with a full in-edge list or clique list. ``plan`` (N, D, Lp, K)
-    replaces the bucket's own, ``caps`` (E, A) the lockstep tier's."""
+    status, "E full", "out E full" and "A - 1 full" where a window ends
+    without an error with a full in-edge, out-edge or clique list, "N = n"
+    for the plan's N, "klen past K" where a walk ended after more than K
+    moves, "more than one wave" where the bucket has more windows than the
+    fused kernel holds on the card at once, and with ``spec`` the facts of
+    ``tb_spec_facts``. ``plan`` (N, D, Lp, K) replaces the bucket's own,
+    ``caps`` (E, A) the lockstep tier's."""
     lockstep, kernels, plains = lockstep_modules()
     N, D0, Lp, K = plan or lockstep.bucket_plan(windows, max_nodes)
     D = D or D0
@@ -914,15 +1013,22 @@ def lockstep_compare(name, windows, weights, dev, max_nodes=None, D=None, reads=
         bk = kernels["nw_lockstep"](ks, seqs_t[s], lens_t[s], act, ck, D, gap, mismatch, match)
         bp = plains["nw_lockstep"](ps, seqs_t[s], lens_t[s], act, cp, D, gap, mismatch, match)
         same("nw_lockstep", (ck, bk), (cp, bp), ks, ps)
+        fs = clone_state(ks)  # the fused read's input: the state the NW left
+        if spec and seen is not None:
+            seen |= tb_spec_facts(ps, cp, bp, lens_t[s], act)
         tk = kernels["tb_lockstep"](ks, ck, bk, lens_t[s], act, K)
         tp = plains["tb_lockstep"](ps, cp, bp, lens_t[s], act, K)
         same("tb_lockstep", tk, tp, ks, ps)
+        if seen is not None and bool((tp[2] > K).any()):
+            seen.add("klen past K")
         kernels["add_lockstep"](ks, *tk, seqs_t[s], w, act)
         plains["add_lockstep"](ps, *tp, seqs_t[s], w, act)
         same("add_lockstep", (), (), ks, ps)
         kernels["topsort_lockstep"](ks, act)
         plains["topsort_lockstep"](ps, act)
         same("topsort_lockstep", (), (), ks, ps)
+        fk = kernels["read_lockstep"](fs, ck, bk, lens_t[s], seqs_t[s], w, act, K)
+        same("read_lockstep", (fk,), (tp[2],), fs, ps)
         state = ks
     act = nseqs > 0
     out = kernels["consensus_lockstep"](state, act)
@@ -931,9 +1037,15 @@ def lockstep_compare(name, windows, weights, dev, max_nodes=None, D=None, reads=
     if seen is not None:
         ok = state["error"] == 0
         E, A = state["in_edges"].shape[2], state["al"].shape[2]
-        seen |= {f"status {s}" for s in statuses}
+        seen |= {f"status {s}" for s in statuses} | {f"N = {N}"}
         seen |= {"E full"} if bool((state["in_count"][ok] == E).any()) else set()
+        seen |= {"out E full"} if bool((state["out_count"][ok] == E).any()) else set()
         seen |= {"A - 1 full"} if bool((state["al_count"][ok] == A - 1).any()) else set()
+        if dev.type == "cuda":
+            from genomeworks_tpu_torch.ops import poa_lockstep_cuda as lk
+
+            if B > lk.read_windows_in_flight(lk.PH_ALL, N, E, K):
+                seen.add("more than one wave")
     print(f"check lockstep {name}: {B} windows, {last - 1} of {S - 1} reads, N={N} D={D} "
           f"Lp={Lp} K={K}: every phase == plain, state and outputs; statuses {statuses}")
     return set(statuses)
@@ -964,10 +1076,12 @@ def largest_covid_bucket(covid):
     return covid_buckets(covid)[0]
 
 
-def lockstep_work(t, plan, dev):
-    """The chain of a bucket through the kernels, counting what each phase's
-    data needs and timing each launch with CUDA events. Returns (work
-    counts, event ms per kernel, launches per kernel, consensus outputs)."""
+def lockstep_work(t, plan, dev, fused):
+    """The chain of a bucket through the kernels, the traceback, add and
+    topsort fused (``read_lockstep``, the main path's) or each alone,
+    counting what each phase's data needs and timing each launch with CUDA
+    events. Returns (work counts, event ms per kernel, launches per
+    kernel, consensus outputs)."""
     lockstep, kernels, _ = lockstep_modules()
     seqs, wts, lens, nseqs = t
     N, D, Lp, K = plan
@@ -1012,12 +1126,18 @@ def lockstep_work(t, plan, dev):
         w = None if wts_t is None else wts_t[s]
         best = timed("nw_lockstep", lambda: kernels["nw_lockstep"](
             st, seqs_t[s], lens_t[s], act, codes, D, -8, -6, 8))
-        ag, ar, klen = timed("tb_lockstep", lambda: kernels["tb_lockstep"](
-            st, codes, best, lens_t[s], act, K))
+        if fused:
+            klen = timed("read_lockstep", lambda: kernels["read_lockstep"](
+                st, codes, best, lens_t[s], seqs_t[s], w, act, K))
+            graph_counts(act & (st["error"] == 0), "sort")
+        else:
+            ag, ar, klen = timed("tb_lockstep", lambda: kernels["tb_lockstep"](
+                st, codes, best, lens_t[s], act, K))
+            timed("add_lockstep", lambda: kernels["add_lockstep"](
+                st, ag, ar, klen, seqs_t[s], w, act))
+            graph_counts(act & (st["error"] == 0), "sort")
+            timed("topsort_lockstep", lambda: kernels["topsort_lockstep"](st, act))
         add("walk_steps", klen.sum())
-        timed("add_lockstep", lambda: kernels["add_lockstep"](st, ag, ar, klen, seqs_t[s], w, act))
-        graph_counts(act & (st["error"] == 0), "sort")
-        timed("topsort_lockstep", lambda: kernels["topsort_lockstep"](st, act))
     graph_counts((nseqs > 0) & (st["error"] == 0), "cons")
     out = timed("consensus_lockstep", lambda: kernels["consensus_lockstep"](st, nseqs > 0))
     add("emitted", out[2].sum())
@@ -1025,8 +1145,10 @@ def lockstep_work(t, plan, dev):
 
 
 def lockstep_bounds(c):
-    """(bytes, int32 ops) each kernel's work needs, from the run's counts."""
-    return {
+    """(bytes, int32 ops) each kernel's work needs, from the run's counts;
+    the fused read's, its three phases' together less the moves it keeps
+    in shared memory."""
+    b = {
         "nw_lockstep": (c["cells"] + c["read_bytes"] + 16 * c["nw_nodes"]
                         + 8 * c["nw_in_edges"],
                         nw_ops({"cells": c["cells"], "pred_cells": c["pred_cells"]})),
@@ -1038,30 +1160,59 @@ def lockstep_bounds(c):
                                + EMIT_BYTES * c["emitted"],
                                WALK_OPS * (c["cons_nodes"] + c["cons_in_edges"])),
     }
+    b["read_lockstep"] = (
+        (TB_STEP_BYTES - MOVE_BYTES + ADD_STEP_BYTES - MOVE_BYTES) * c["walk_steps"]
+        + b["topsort_lockstep"][0],
+        sum(b[n][1] for n in LK_ALONE))
+    return b
 
 
 def lockstep_timing(covid, dev):
     """Each lockstep kernel at the shapes of the largest covid bucket: CUDA
-    events around every launch of the bucket's chain, and the device time
-    by kernel under torch.profiler; the plain versions on the first 256
-    windows of the bucket at read 1 (and consensus after the whole build),
-    with the kernels on the same inputs. Returns the kernels line's timing
-    fields by name."""
+    events around every launch of the bucket's chain, once fused (the main
+    path's) and once with the single-phase traceback, add and topsort, and
+    the device time by kernel of both under torch.profiler; the windows the
+    fused kernel holds on the card at once, and the waves of every covid
+    bucket; the plain versions on the first 256 windows of the bucket at
+    read 1 (and consensus after the whole build), with the kernels on the
+    same inputs. Returns the kernels line's timing fields by name."""
     lockstep, kernels, plains = lockstep_modules()
+    from genomeworks_tpu_torch.ops import poa_lockstep_cuda as lk
+
+    for ws, (N, D, Lp, K), cfg in covid_buckets(covid):
+        fly = lk.read_windows_in_flight(lk.PH_ALL, N, lk.plain.E_LK, K)
+        print(f"lk_read_kernel<7> on the covid bucket of bin {cfg.max_sequence_size}, {len(ws)} "
+              f"windows, N={N} K={K}: {fly} windows in flight on the card, so "
+              f"{-(-len(ws) // fly)} wave(s)")
     windows, plan, cfg = largest_covid_bucket(covid)
     N, D, Lp, K = plan
     ones = [[np.ones(len(s), np.int32) for s in w] for w in windows]
     t = bucket_tensors(windows, ones, N, dev)
     B, S, _ = t[0].shape
     shape = f"the largest covid bucket: {B} windows, {S} reads, N={N} D={D} Lp={Lp} K={K}"
-    lockstep_work(t, plan, dev)  # warm
-    c, ev_ms, launches, out = lockstep_work(t, plan, dev)
+    ev_ms = dict.fromkeys(kernels, 0.0)
+    launches = dict.fromkeys(kernels, 0)
+    for fused in (True, False):
+        lockstep_work(t, plan, dev, fused)  # warm
+        c_run, ms_run, n_run, out = lockstep_work(t, plan, dev, fused)
+        for name in LK_ALONE + ("read_lockstep",):
+            ev_ms[name] += ms_run[name]
+            launches[name] += n_run[name]
+        if fused:
+            for name in ("nw_lockstep", "consensus_lockstep"):
+                ev_ms[name], launches[name] = ms_run[name], n_run[name]
+            fused_out = out
+        else:
+            c = c_run
+            compare("the fused chain against the single-phase chain", fused_out, out)
     busy, prof_wall, by_name = profiled(lambda: lockstep.run_bucket(*t, N, D, Lp, K, -8, -6, 8))
-    dev_ms = {name: sum(ms for key, ms in by_name.items() if kname in key)
+    _, _, by_name_alone = profiled(lambda: lockstep_work(t, plan, dev, False))
+    dev_ms = {name: sum(ms for key, ms in (by_name_alone if name in LK_ALONE else by_name).items()
+                        if kname in key)
               for name, kname in LK_DEVICE_NAME.items()}
     print(f"time lockstep chain on {shape} (bin {cfg.max_sequence_size}): statuses "
-          f"{sorted(set(out[3].tolist()))}; profiled run {prof_wall * 1e3:.3f} ms wall, device "
-          f"busy {busy:.3f} ms; work {c}")
+          f"{sorted(set(fused_out[3].tolist()))}; profiled run {prof_wall * 1e3:.3f} ms wall, "
+          f"device busy {busy:.3f} ms; work {c}")
 
     # the plain versions (and the kernels again) on a subset at read 1
     sub = [x[:256].contiguous() for x in t]
@@ -1075,6 +1226,8 @@ def lockstep_timing(covid, dev):
         ks, ps = clone_state(st_in), clone_state(st_in)
         sub_ms[name], k_out = cuda_ms(lambda: run(kernels[name], ks))
         plain_ms[name], p_out = cuda_ms(lambda: run(plains[name], ps))
+        k_out = k_out if isinstance(k_out, tuple) else (k_out,)
+        p_out = p_out if isinstance(p_out, tuple) else (p_out,)
         compare(f"{name} timed on the subset", (*k_out, *ks.values()), (*p_out, *ps.values()))
         return k_out, ks
 
@@ -1083,6 +1236,8 @@ def lockstep_timing(covid, dev):
         return codes, fn(st, seqs_t[1], lens_t[1], act, codes, D, -8, -6, 8)
 
     (codes, best), st1 = both("nw_lockstep", st0, nw)
+    both("read_lockstep", st1,
+         lambda fn, st: fn(st, codes, best, lens_t[1], seqs_t[1], wts_t[1], act, K))
     tb, st2 = both("tb_lockstep", st1, lambda fn, st: fn(st, codes, best, lens_t[1], act, K))
     _, st3 = both("add_lockstep", st2,
                   lambda fn, st: (fn(st, *tb, seqs_t[1], wts_t[1], act), ())[1])
@@ -1091,9 +1246,7 @@ def lockstep_timing(covid, dev):
     for s in range(1, S):
         a = sub[3] > s
         b_i = kernels["nw_lockstep"](st, seqs_t[s], lens_t[s], a, codes, D, -8, -6, 8)
-        kernels["add_lockstep"](st, *kernels["tb_lockstep"](st, codes, b_i, lens_t[s], a, K),
-                                seqs_t[s], wts_t[s], a)
-        kernels["topsort_lockstep"](st, a)
+        kernels["read_lockstep"](st, codes, b_i, lens_t[s], seqs_t[s], wts_t[s], a, K)
     both("consensus_lockstep", st, lambda fn, st_: fn(st_, sub[3] > 0))
     print("time lockstep kernels vs plain on the first 256 windows of the bucket (read 1; "
           "consensus after the whole build): " + "; ".join(
@@ -1105,9 +1258,10 @@ def lockstep_timing(covid, dev):
         t_bytes = nbytes_ / HBM_BYTES_PER_S * 1e3 / n
         t_ops = ops / SCALAR_OPS_PER_S * 1e3 / n
         ms = (dev_ms[name] or ev_ms[name]) / n
-        print(f"{name}: {n} launches on the bucket; device {dev_ms[name]:.3f} ms, events "
-              f"{ev_ms[name]:.3f} ms in all; bound {nbytes_} bytes -> {t_bytes * n:.6f} ms, "
-              f"{ops} int32 ops -> {t_ops * n:.6f} ms in all")
+        print(f"{name} ({LK_DEVICE_NAME[name]}): {n} launches on the bucket; device "
+              f"{dev_ms[name]:.3f} ms, events {ev_ms[name]:.3f} ms in all, {ms:.4f} ms a launch; "
+              f"bound {nbytes_} bytes -> {t_bytes * n:.6f} ms, {ops} int32 ops -> "
+              f"{t_ops * n:.6f} ms in all")
         fields[name] = {
             "ms": ms, "plain_ms": plain_ms[name], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1732,8 +1886,8 @@ def main() -> int:
         lk_statuses |= lockstep_compare(label, ws, wt, dev, seen=seen, **kw)
         if not want <= seen:
             fail(f"the lockstep edge set {key!r} did not reach {sorted(want - seen)}")
-    if not {0, 1, 5, 6} <= lk_statuses:
-        fail(f"the lockstep check sets did not reach statuses 0, 1, 5 and 6 "
+    if not {0, 1, 3, 5, 6, 100} <= lk_statuses:
+        fail(f"the lockstep check sets did not reach statuses 0, 1, 3, 5, 6 and 100 "
              f"(got {sorted(lk_statuses)})")
 
     # -- 3. the main paths --------------------------------------------------------
@@ -1794,14 +1948,19 @@ def main() -> int:
     by_bin(covid[:64], per_window)
     results, wall, launches, plain_calls, tiers = counted(lambda: by_bin(covid, poa_batch))
     check_golden("default path", results)
-    if min(launches.values()) <= 0:
+    if min(v for n, v in launches.items() if n not in LK_ALONE) <= 0:
         fail(f"the default path did not launch every kernel: {launches}")
+    if any(launches[n] for n in LK_ALONE) or not (
+            launches["read_lockstep"] == launches["nw_lockstep"] == LK_MAIN_READS):
+        fail(f"the default path's reads were not {LK_MAIN_READS} NW and {LK_MAIN_READS} fused "
+             f"launches with no single-phase one: {launches}")
     if plain_calls:
         fail(f"the default path called a plain version {plain_calls} times")
     print(f"main path (default: lockstep tier): {len(covid)} covid windows through "
           f"PoaBatch(device='cuda'): all success, all equal the golden; {wall:.3f} s wall, "
           f"{len(covid) / wall:.1f} windows/s; tier counts {tiers}; launches {launches} (the "
-          f"per-window kernel's are its bins under 64 windows and the re-runs); "
+          f"per-window kernel's are its bins under 64 windows and the re-runs; each read of the "
+          f"tier one NW and one fused read_lockstep launch); "
           f"{plain_calls} plain-version calls")
     results, wall1, launches1, plain1, tiers1 = counted(lambda: by_bin(covid, per_window))
     check_golden("use_lockstep=False path", results)
@@ -1878,10 +2037,15 @@ def main() -> int:
         "source": LK_SOURCE,
         "replaces": LK_REPLACES[name],
         "state": "ported",
+        # a single phase is launched 0 times on the main path, which runs
+        # it inside the fused read (runs_in)
         "launches": launches[name],
         "max_abs_err": 0,
         "library_ms": None,
         **lk_fields[name],
+        "kernel": LK_DEVICE_NAME[name],
+        **({"runs_in": "read_lockstep"} if name in LK_ALONE else {}),
+        **({"also_replaces": LK_ALSO_REPLACES} if name == "read_lockstep" else {}),
         "main_path_s": wall,
         "windows_per_s": len(covid) / wall,
         "tier_counts": tiers,

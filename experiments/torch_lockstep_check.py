@@ -1,21 +1,37 @@
-"""Old against new for the lockstep NW and add kernels on one card.
+"""Old against new for the lockstep traceback, add and topsort on one card.
 
     python3 experiments/torch_lockstep_check.py [--parent DIR] [--nw-c 2,8]
 
-1. Builds csrc/poa_lockstep.cu and prints its kernels' registers, shared
-   memory and spills as ptxas reports them. With ``--nw-c``, also builds it
-   with other numbers of score rows a window keeps in shared memory
-   (``-DNW_C=c``) through ``_build.load``.
+1. Builds csrc/poa_lockstep.cu, its debug build (``-DLK_READ_STATS=1``:
+   clock64 cycles and counts per phase of ``lk_read_kernel``) and, with
+   ``--nw-c``, builds whose NW keeps other numbers of score rows a window
+   in shared memory (``-DNW_C=c``), all through ``_build.build``, one nvcc
+   each, started together, and prints each build's registers, shared
+   memory and spills as ptxas reports them.
 2. With ``--parent DIR`` (a directory holding another checkout's
    genomeworks_tpu_torch/csrc/poa_lockstep.cu, e.g. the parent commit
-   unpacked with ``git archive``), builds that source too; its launchers
-   have the same C interface.
-3. Runs the lockstep chain of each covid bucket (the windows PoaBatch
-   gives the lockstep tier, the largest first) once per build, in turns
-   (parent, this, this, parent, then each NW_C variant), with that build's
-   ``lk_nw_kernel`` and ``lk_add_kernel`` and this build's other kernels.
-   Times every NW and add launch with CUDA events and checks that every
-   run ends with the first run's whole state and consensus.
+   unpacked with ``git archive``), builds that source too. A parent with
+   one-thread kernels (``lk_tb_launch``, ``lk_add_launch``,
+   ``lk_topsort_launch``) is run through those.
+3. For each covid bucket (the windows PoaBatch gives the lockstep tier,
+   the largest first): the windows ``lk_read_kernel<7>`` holds on the card
+   at once and the waves; then the bucket's chain once per build, in turns
+   (parent, this, this, parent, then each --nw-c build): the
+   parent with its own NW, traceback, add and topsort; this build and the
+   other builds with their NW and the fused ``read_lockstep`` (the main path's),
+   and this build also with its single-phase traceback, add and topsort.
+   Every launch is timed with CUDA events; every run must end with the
+   first run's whole state and consensus. Prints ms a launch per kernel,
+   and the sum over the buckets of the traceback, add and topsort time
+   (the default covid path's, one launch of each a read).
+4. The debug build's counters over all buckets, fused: the share of
+   traceback moves the speculation took without a round of their own,
+   cycles a move, a window's table and jump tables, an add step and a
+   sorted node.
+5. How wide Kahn's queue is on the largest bucket's final graphs (a
+   replay on the host of its first 256 windows): the share of pops that
+   find more than one node ready, and the rounds a sort would take
+   popping up to 4 ready nodes at once.
 
 Prints the card's name and power limit first. Needs CUDA and nvcc.
 """
@@ -27,6 +43,7 @@ import ctypes
 import os
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -40,62 +57,138 @@ from genomeworks_tpu_torch.ops import poa_lockstep_cuda as lk  # noqa: E402
 from genomeworks_tpu_torch.poa import lockstep  # noqa: E402
 from genomeworks_tpu_torch.poa.windows import load_window_file  # noqa: E402
 
+#: the debug build's counters, in the order of csrc/poa_lockstep.cu's RS_* enum
+STATS = ("tb_windows", "tb_table_cycles", "tb_walk_cycles", "tb_steps", "tb_rounds",
+         "add_windows", "add_cycles", "add_steps", "sort_windows", "sort_cycles", "sort_nodes")
+
 
 def build(source, defines=None):
-    """Build and bind one version of the source; prints its ptxas lines."""
+    """Build and bind one version of the source; prints its ptxas lines.
+    Returns (library, True for this C interface, False for the parent's
+    one-thread kernels)."""
     path = _build.build(source, defines)
     lib = ctypes.CDLL(path)
-    try:
+    fused = hasattr(lib, "lk_read_launch")
+    if fused:
         lk.bind(lib)
-    except AttributeError:  # a version without lk_nw_ring_width: its launchers are bound
-        pass
+    else:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        st = [ctypes.POINTER(ctypes.c_void_p)] + [I] * 4
+        for name, rest in (("lk_nw_launch", [P, I, P, P, P, I, P, P, I, I, I, I, P]),
+                           ("lk_tb_launch", [P, I, P, P, P, P, P, P, I, P]),
+                           ("lk_add_launch", [P, P, P, I, P, P, I, P, P]),
+                           ("lk_topsort_launch", [P, P, P]),
+                           ("lk_consensus_launch", [P, P, P, P, P, P, P])):
+            getattr(lib, name).argtypes = st + rest
+            getattr(lib, name).restype = ctypes.c_int
+        lib.lk_nw_ring_width.argtypes = [I]
+        lib.lk_nw_ring_width.restype = I
     for ln in _build.build_log.get(path, "").splitlines():
         if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
-            print(f"  ptxas {source} {defines or ''}: {ln.strip()}")
-    return lib
+            print(f"  ptxas {os.path.basename(source)} {defines or ''}: {ln.strip()}")
+    return lib, fused
 
 
-def run_chain(lib, t, plan, dev):
-    """The bucket's chain with ``lib``'s NW and add: (ms per NW launch, ms
-    per add launch, launches, final state, consensus outputs)."""
+def run_chain(lib, fused, t, plan, dev, alone=False):
+    """The bucket's chain with ``lib``: (ms per launch by kernel, launches,
+    final state, consensus outputs). ``alone``: this build's single-phase
+    traceback, add and topsort instead of the fused read."""
     seqs, wts, lens, nseqs = t
     N, D, Lp, K = plan
     B, S, Lr = seqs.shape
     (seqs_t, wts_t, lens_t), st = lockstep.start_bucket(seqs, wts, lens, nseqs, N)
     codes = torch.empty((B, N, Lp), dtype=torch.uint8, device=dev)
-    width = max(Lp, 32 * ((Lr + 32) // 32))
-    ring = torch.empty(B * (D + 1) * width, dtype=torch.int32, device=dev)
-    best = torch.empty(B, dtype=torch.int32, device=dev)
     E, A = st["in_edges"].shape[2], st["al"].shape[2]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ms = {"nw": 0.0, "add": 0.0}
+    ms: dict = {}
 
     def timed(key, fn):
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
-        rc = fn()
+        out = fn()
         e1.record()
         torch.cuda.synchronize()
-        if rc != 0:
-            raise RuntimeError(f"{key} launch failed: CUDA error {rc}")
-        ms[key] += e0.elapsed_time(e1)
+        ms[key] = ms.get(key, 0.0) + e0.elapsed_time(e1)
+        return out
 
-    for s in range(1, S):
-        act = nseqs > s
-        timed("nw", lambda: lib.lk_nw_launch(
-            lk._ptrs(st), B, N, E, A, seqs_t[s].data_ptr(), Lr, lens_t[s].data_ptr(),
-            act.data_ptr(), codes.data_ptr(), Lp, best.data_ptr(), ring.data_ptr(), D, -8, -6,
-            8, stream))
-        ag, ar, klen = lk.tb_lockstep(st, codes, best, lens_t[s], act, K)
-        w = None if wts_t is None else wts_t[s]
-        timed("add", lambda: lib.lk_add_launch(
-            lk._ptrs(st), B, N, E, A, ag.data_ptr(), ar.data_ptr(), klen.data_ptr(), K,
-            seqs_t[s].data_ptr(), None if w is None else w.data_ptr(), Lr, act.data_ptr(),
-            stream))
-        lk.topsort_lockstep(st, act)
+    if fused:
+        lk._lib = lib  # the wrappers launch this build's kernels
+        for s in range(1, S):
+            act = nseqs > s
+            w = None if wts_t is None else wts_t[s]
+            best = timed("nw", lambda: lk.nw_lockstep(st, seqs_t[s], lens_t[s], act, codes, D,
+                                                       -8, -6, 8))
+            if alone:
+                ag, ar, klen = timed("tb", lambda: lk.tb_lockstep(st, codes, best, lens_t[s],
+                                                                   act, K))
+                timed("add", lambda: lk.add_lockstep(st, ag, ar, klen, seqs_t[s], w, act))
+                timed("topsort", lambda: lk.topsort_lockstep(st, act))
+            else:
+                timed("read", lambda: lk.read_lockstep(st, codes, best, lens_t[s], seqs_t[s], w,
+                                                        act, K))
+        lk._lib = None
+    else:  # the parent's one-thread kernels, as its wrappers launched them
+        ring = torch.empty((B, D + 1, lib.lk_nw_ring_width(Lr)), dtype=torch.int32, device=dev)
+        best = torch.empty(B, dtype=torch.int32, device=dev)
+        local = torch.empty((B, N), dtype=torch.int32, device=dev)
+
+        def rc(r):
+            if r != 0:
+                raise RuntimeError(f"parent launch failed: CUDA error {r}")
+
+        for s in range(1, S):
+            act = nseqs > s
+            w = None if wts_t is None else wts_t[s]
+            timed("nw", lambda: rc(lib.lk_nw_launch(
+                lk._ptrs(st), B, N, E, A, seqs_t[s].data_ptr(), Lr, lens_t[s].data_ptr(),
+                act.data_ptr(), codes.data_ptr(), Lp, best.data_ptr(), ring.data_ptr(), D, -8,
+                -6, 8, stream)))
+            ag = torch.full((B, K), -1, dtype=torch.int32, device=dev)
+            ar = torch.full((B, K), -1, dtype=torch.int32, device=dev)
+            klen = torch.empty(B, dtype=torch.int32, device=dev)
+            timed("tb", lambda: rc(lib.lk_tb_launch(
+                lk._ptrs(st), B, N, E, A, codes.data_ptr(), Lp, best.data_ptr(),
+                lens_t[s].data_ptr(), act.data_ptr(), ag.data_ptr(), ar.data_ptr(),
+                klen.data_ptr(), K, stream)))
+            timed("add", lambda: rc(lib.lk_add_launch(
+                lk._ptrs(st), B, N, E, A, ag.data_ptr(), ar.data_ptr(), klen.data_ptr(), K,
+                seqs_t[s].data_ptr(), None if w is None else w.data_ptr(), Lr, act.data_ptr(),
+                stream)))
+            timed("topsort", lambda: rc(lib.lk_topsort_launch(
+                lk._ptrs(st), B, N, E, A, act.data_ptr(), local.data_ptr(), stream)))
     out = lk.consensus_lockstep(st, nseqs > 0)
     n = S - 1
-    return ms["nw"] / n, ms["add"] / n, n, st, out
+    return {k: v / n for k, v in ms.items()}, n, st, out
+
+
+def queue_width(st, windows=256):
+    """Kahn's order replayed on the host over the first ``windows`` graphs
+    of a state: (pops, pops with more than one node ready, rounds popping
+    up to 4 ready nodes at once)."""
+    h = {k: v[:windows].cpu().numpy() for k, v in st.items()}
+    pops = wide = rounds = 0
+    for b in range(h["nodes"].shape[0]):
+        if h["error"][b] != 0:
+            continue
+        nc = int(h["node_count"][b])
+        for batch in (1, 4):
+            local = h["in_count"][b, :nc].copy()
+            queue = [n for n in range(nc) if local[n] == 0]
+            i = 0
+            while i < len(queue):
+                k = min(batch, len(queue) - i)
+                if batch == 1:
+                    pops += 1
+                    wide += len(queue) - i > 1
+                else:
+                    rounds += 1
+                for n in queue[i:i + k]:
+                    for o in h["out_edges"][b, n, :h["out_count"][b, n]]:
+                        local[o] -= 1
+                        if local[o] == 0:
+                            queue.append(int(o))
+                i += k
+    return pops, wide, rounds
 
 
 def main() -> int:
@@ -109,37 +202,87 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
     dev = torch.device("cuda")
-    libs = {"this": build(lk.SOURCE)}
+    jobs = {"this": (lk.SOURCE, None), "debug": (lk.SOURCE, {"LK_READ_STATS": 1})}
     if args.parent:
-        libs["parent"] = build(os.path.abspath(os.path.join(
-            args.parent, "genomeworks_tpu_torch", "csrc", lk.SOURCE)))
+        jobs["parent"] = (os.path.abspath(os.path.join(
+            args.parent, "genomeworks_tpu_torch", "csrc", lk.SOURCE)), None)
     for c in filter(None, args.nw_c.split(",")):
-        libs[f"NW_C={c}"] = build(lk.SOURCE, {"NW_C": int(c)})
+        jobs[f"NW_C={c}"] = (lk.SOURCE, {"NW_C": int(c)})
+    with ThreadPoolExecutor(len(jobs)) as pool:  # one nvcc a build, started together
+        for f in [pool.submit(_build.build, src, d) for src, d in jobs.values()]:
+            f.result()
+    libs = {name: build(src, d) for name, (src, d) in jobs.items()}
 
     covid = load_window_file(os.path.join(ROOT, "tests", "data", "poa_windows_covid.txt.gz"))
     order = ["parent", "this", "this", "parent"] if args.parent else ["this", "this"]
     order += [k for k in libs if k.startswith("NW_C")]
     ok = True
+    total: dict = {}
+    for bucket, (windows, plan, cfg) in enumerate(chip_smoke.covid_buckets(covid)):
+        cfg_key = bucket
+        N, D, Lp, K = plan
+        ones = [[np.ones(len(s), np.int32) for s in w] for w in windows]
+        t = chip_smoke.bucket_tensors(windows, ones, N, dev)
+        lk._lib = libs["this"][0]
+        fly = lk.read_windows_in_flight(lk.PH_ALL, N, lk.plain.E_LK, K)
+        lk._lib = None
+        print(f"covid bucket (bin {cfg.max_sequence_size}): {len(windows)} windows, "
+              f"{t[0].shape[1]} reads, (N, D, Lp, K) = {plan}; lk_read_kernel<7> holds {fly} "
+              f"windows on the card at once: {-(-len(windows) // fly)} wave(s)")
+        run_chain(*libs["this"], t, plan, dev)  # warm
+        ref = None
+        for name in order:
+            runs = [False, True] if name == "this" else [False]
+            for alone in runs:
+                ms, n, st, out = run_chain(*libs[name], t, plan, dev, alone)
+                same = True
+                if ref is None:
+                    ref = (st, out)
+                else:
+                    same = all(torch.equal(st[k], ref[0][k]) for k in st) and all(
+                        torch.equal(a, b) for a, b in zip(out, ref[1]))
+                ok &= same
+                label = f"{name}{' (single phases)' if alone else ''}"
+                walks = sum(ms.get(k, 0.0) for k in ("tb", "add", "topsort", "read"))
+                turns = total.setdefault(label, {}).setdefault(cfg_key, [])
+                turns.append(walks * n)
+                print(f"time {label}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+                      + f" a launch ({n} reads); tb + add + topsort {walks:.4f} ms a read; state "
+                      f"and consensus {'equal to the first run' if same else 'DIFFER'}",
+                      flush=True)
+    for label, by_bucket in total.items():
+        v = sum(sum(t) / len(t) for t in by_bucket.values())
+        print(f"sum over the covid buckets, {label}: tb + add + topsort {v:.3f} ms (a bucket's "
+              f"turns averaged: the default covid path's)")
+
+    # the debug build's counters, over every bucket's fused chain
+    lib = libs["debug"][0]
+    stats = (ctypes.c_ulonglong * len(STATS))()
+    lib.lk_read_stats(stats, 1)
     for windows, plan, cfg in chip_smoke.covid_buckets(covid):
         ones = [[np.ones(len(s), np.int32) for s in w] for w in windows]
         t = chip_smoke.bucket_tensors(windows, ones, plan[0], dev)
-        print(f"covid bucket (bin {cfg.max_sequence_size}): {len(windows)} windows, "
-              f"{t[0].shape[1]} reads, (N, D, Lp, K) = {plan}")
-        run_chain(libs["this"], t, plan, dev)  # warm
-        ref = None
-        for name in order:
-            nw_ms, add_ms, n, st, out = run_chain(libs[name], t, plan, dev)
-            same = True
-            if ref is None:
-                ref = (st, out)
-            else:
-                same = all(torch.equal(st[k], ref[0][k]) for k in st) and all(
-                    torch.equal(a, b) for a, b in zip(out, ref[1]))
-            ok &= same
-            print(f"time {name}: lk_nw_kernel {nw_ms:.4f} ms a launch, lk_add_kernel "
-                  f"{add_ms:.4f} ms a launch ({n} launches each); state and consensus "
-                  f"{'equal to the first run' if same else 'DIFFER from the first run'}",
-                  flush=True)
+        run_chain(lib, True, t, plan, dev)
+    if lib.lk_read_stats(stats, 1) != 0:
+        print("the debug build's counters could not be read")
+        return 1
+    c = dict(zip(STATS, (int(x) for x in stats)))
+    print(f"debug build over the covid buckets: {c}")
+    print(f"traceback: {c['tb_steps']} moves in {c['tb_rounds']} rounds: "
+          f"{100 * (1 - c['tb_rounds'] / c['tb_steps']):.2f} % of the moves taken by the "
+          f"speculation (no round of their own), {c['tb_steps'] / c['tb_rounds']:.2f} moves a "
+          f"round; {c['tb_walk_cycles'] / c['tb_steps']:.1f} cycles a move, "
+          f"{c['tb_table_cycles'] / c['tb_windows']:.0f} cycles a window's table and jump "
+          f"tables; add "
+          f"{c['add_cycles'] / max(1, c['add_steps']):.1f} cycles a step; topsort "
+          f"{c['sort_cycles'] / max(1, c['sort_nodes']):.1f} cycles a node (lane 0's clock)")
+    windows, plan, cfg = chip_smoke.largest_covid_bucket(covid)
+    t = chip_smoke.bucket_tensors(windows, [[np.ones(len(s), np.int32) for s in w]
+                                            for w in windows], plan[0], dev)
+    pops, wide, rounds = queue_width(run_chain(*libs["this"], t, plan, dev)[2])
+    print(f"Kahn's queue on the largest bucket's final graphs (first 256 windows): {pops} pops, "
+          f"{100 * wide / pops:.2f} % with more than one node ready; popping up to 4 at once "
+          f"would take {rounds} rounds ({pops / rounds:.3f} nodes a round)")
     print("ALL EQUAL" if ok else "SOME RUN DIFFERS")
     return 0 if ok else 1
 

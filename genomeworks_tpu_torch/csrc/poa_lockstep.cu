@@ -1,6 +1,7 @@
-// The lockstep POA tier for Hopper (sm_90a): the five phases of one read
-// (NW, traceback, add alignment, topological sort) and the final consensus,
-// each a kernel over a whole bucket of windows.
+// The lockstep POA tier for Hopper (sm_90a): the phases of one read (NW,
+// traceback, add alignment, topological sort) and the final consensus, each
+// over a whole bucket of windows; a read is two launches, the NW and
+// lk_read_kernel (traceback, add and topsort fused).
 //
 // Replaces the five Pallas TPU kernels of
 // genomeworks_tpu/ops/poa_lockstep_pallas.py: nw_lockstep (_nw_kernel),
@@ -13,7 +14,8 @@
 // The TPU ran one window per vector lane, 128 windows in lockstep, with the
 // graph as (N, 128) planes and every pointer chase a one-hot gather. Here
 // the graph state is the port's (B, N) layout in device memory, and a
-// window is one warp (NW, add) or one thread (the rest):
+// window is one warp (NW, traceback, add, topsort) or one thread
+// (consensus):
 // - NW (nw_lockstep): one warp per window, several windows a block. Its
 //   bound on this card is the bytes of the priority codes it writes (one a
 //   cell); what costs is the chain of rows in topological order, a few
@@ -32,21 +34,38 @@
 //   shared-memory stage and out a word a lane, one __syncwarp a row. NW_C
 //   is 4: at 3 more reads go to device memory, at 5 or 8 fewer windows fit
 //   on the card at once (PERF.md).
-// - Add (add_lockstep): one warp per window. The walk is sequential, so
-//   its time is the chain of dependent loads of its longest window. Before
-//   the walk the warp loads what the walk never writes (the moves, the
-//   read's bases and weights, 32 steps at a time) and mirrors in shared
-//   memory the per-node fields it reads on every step (base, in-, out- and
-//   aligned counts, coverage), writing the counts back after the walk. A
-//   step then reads device memory only for the lists it scans, one slot a
-//   lane: the aligned list of its graph node (a ballot finds the first
-//   member with the read's base) and the in-edge list of the node it lands
-//   on. About one device round trip a step instead of ten.
-// - Traceback, topsort, consensus: one thread per window, 64 threads a
-//   block, so a bucket of thousands of windows spreads over the SMs. They
-//   are chains of dependent loads (pointer chases over the graph), bound by
-//   their latency, not by bytes or operations; each kernel's time follows
-//   its longest window.
+// - Traceback, add and topsort (tb_lockstep, add_lockstep,
+//   topsort_lockstep): lk_read_kernel<PH>, one warp per window, the phases
+//   of PH in one launch; the main path runs all three (PH 7), the wrappers
+//   of the single phases one each. All three are walks, chains of
+//   dependent steps bound by their latency, not by bytes or operations
+//   (the codes a traceback reads are a few hundred bytes of megabytes);
+//   the kernel's time follows its longest window. So each phase first
+//   loads, all lanes at once, what its walk will read into shared memory,
+//   and the phases hand each other their data there:
+//   * traceback: a table of each row's node and predecessor rows, so that a
+//     move needs only its code byte from device memory; and lanes that
+//     load the codes of the next 32 moves at once, guessing each to be a
+//     diagonal to the row's first predecessor, so that a run of such
+//     moves costs one round trip. The moves go to a 16-bit stage in shared
+//     memory (fused) instead of device memory.
+//   * add: before the walk the warp loads what the walk never writes (the
+//     moves, the read's bases and weights, 32 steps at a time) and mirrors
+//     in shared memory the per-node fields it reads on every step (base,
+//     in-, out- and aligned counts, coverage), writing the counts back
+//     after the walk. A step then reads device memory only for the lists
+//     it scans, one slot a lane: the aligned list of its graph node (a
+//     ballot finds the first member with the read's base) and the in-edge
+//     list of the node it lands on.
+//   * topsort: Kahn's order from the counts the add left in its mirror and
+//     an out-edge cache, one lane per out-edge of the popped node, a ballot
+//     to enqueue.
+//   Shared memory: about 24 N bytes a window (ReadLayout), so 24 windows an
+//   SM at N = 384, the largest covid bucket in one wave.
+// - Consensus: one thread per window, 64 threads a block, so a bucket of
+//   thousands of windows spreads over the SMs: a chain of dependent loads
+//   (the heaviest path over the graph), bound by its latency; its time
+//   follows its longest window.
 //
 // Built with nvcc into a shared library with a plain C interface and loaded
 // with ctypes (genomeworks_tpu_torch/ops/_build.py).
@@ -360,88 +379,289 @@ lk_nw_kernel(State st, int B, int wpb, int warp_bytes, const uint8_t* __restrict
 }
 
 // ---------------------------------------------------------------------------
-// Traceback, add, topsort, consensus (rows 2-5): one thread per window
+// Traceback, add, topsort (rows 2-4): lk_read_kernel, a warp per window
 // ---------------------------------------------------------------------------
 
-constexpr int WIN_NT = 64;
+// The phases lk_read_kernel<PH> runs, bits of PH. The main path runs all
+// three in one launch a read (PH_ALL); tb_lockstep, add_lockstep and
+// topsort_lockstep launch one phase alone, so that each phase's outputs and
+// whole state can be held to its plain version.
+constexpr int PH_TB = 1, PH_ADD = 2, PH_SORT = 4, PH_ALL = 7;
+constexpr int READ_WARPS = 4;       // windows per block, at most
+constexpr int READ_MIN_BLOCKS = 6;  // blocks an SM: 24 warps, at most 80 registers a thread
+constexpr int OUT_CACHE = 7;  // out-edge slots the topsort keeps in shared memory
+constexpr int TB_ROWS = 2;    // table rows a lane loads at once
 
-// Walk the codes back from (best_i, read_len) to (0, 0); ag/ar (prefilled
-// with -1 by the wrapper) get the moves in backward order.
-__global__ void __launch_bounds__(WIN_NT)
-lk_tb_kernel(State st, int B, const uint8_t* __restrict__ codes, int Lp,
-             const int* __restrict__ best_i, const int* __restrict__ rl,
-             const bool* __restrict__ act, int* __restrict__ ag, int* __restrict__ ar,
-             int* __restrict__ klen, int K) {
-  const int b = blockIdx.x * WIN_NT + threadIdx.x;
-  if (b >= B) return;
-  if (!act[b] || st.error[b] != 0) {
-    klen[b] = 0;
-    return;
-  }
-  const Win w(st, b);
-  const int N = w.N, E = w.E, HORIZ = 2 * E;
-  const uint8_t* wc = codes + size_t(b) * N * Lp;
-  int* wag = ag + size_t(b) * K;
-  int* war = ar + size_t(b) * K;
-  int i = best_i[b], j = rl[b], k = 0;
-  for (int steps = 0; (i != 0 || j != 0) && steps < K + 2; ++steps) {
-    const int code =
-        i == 0 ? HORIZ : wc[size_t(clampi(i - 1, 0, N - 1)) * Lp + clampi(j, 0, Lp - 1)];
-    int pi = i, pj = j - 1, nid = -1;
-    if (code != HORIZ) {
-      nid = clampi(w.sorted[clampi(i - 1, 0, N - 1)], 0, N - 1);
-      const int pred = clampi(w.in_edges[size_t(nid) * E + code % E], 0, N - 1);
-      pi = w.in_count[nid] == 0 ? 0 : w.pos_of[pred] + 1;
-      pj = code < E ? j - 1 : j;
+// Debug build (-DLK_READ_STATS=1, off in normal builds): lane 0 of each
+// window adds its phases' clock64() cycles and counts to g_read_stats
+// (the RS_* counters below), read with lk_read_stats.
+enum {
+  RS_TB_WINDOWS, RS_TB_TABLE_CYCLES, RS_TB_WALK_CYCLES, RS_TB_STEPS, RS_TB_ROUNDS,
+  RS_ADD_WINDOWS, RS_ADD_CYCLES, RS_ADD_STEPS, RS_SORT_WINDOWS, RS_SORT_CYCLES, RS_SORT_NODES,
+  RS_COUNT
+};
+#ifdef LK_READ_STATS
+__device__ unsigned long long g_read_stats[RS_COUNT];
+#define RS_CLOCK() clock64()
+#define RS_ADD(k, n)                                                          \
+  do {                                                                        \
+    if ((threadIdx.x & 31) == 0) atomicAdd(&g_read_stats[k], (unsigned long long)(n)); \
+  } while (0)
+#else
+#define RS_CLOCK() 0LL
+#define RS_ADD(k, n) \
+  do {               \
+  } while (0)
+#endif
+
+__host__ __device__ inline int al16(int x) { return (x + 15) & ~15; }
+
+// A window's shared memory in lk_read_kernel<PH>, byte offsets from its
+// warp's slice; each phase reuses what the one before left dead:
+// - traceback: the predecessor table at 0, a row of E + 1 int16 per graph
+//   row r < node_count (its node, then pos_of + 1 of each in-edge slot's
+//   node, 0 for every slot where the node has no in-edge), then at `pos`
+//   pos_of + 1 of every node (int16) while the table is built, and after
+//   it the jump tables of the guessed moves (2 x N int16), so that the
+//   traceback's 20 N bytes at E = 7 are no more than the add's;
+// - add: the mirror of the per-node fields at 0, int32: in-count, out-count,
+//   base, aligned count, coverage (N each);
+// - fused only, after both: the moves from the traceback to the add at
+//   `stage`, a uint16 a step (ag + 1, and bit 15 where the step consumed a
+//   read base), `words` (those bits, 32 steps a word) and `jw` (the read
+//   column before each 32nd step), from which a step's ar is rebuilt;
+// - topsort: the add's in- and out-counts at 0 (loaded when it runs alone),
+//   the out-edge cache at `cache` (OUT_CACHE planes of N uint16 node ids,
+//   over the mirror's dead fields) and the queue (N uint16) at `queue`.
+// 16-bit ids and positions: N <= 32767 (the wrapper checks).
+struct ReadLayout {
+  int pos, stage, words, jw, cache, queue, bytes;
+  __host__ __device__ ReadLayout(int PH, int N, int E, int K) {
+    const int nw = (K + 31) / 32;
+    const int table = al16(2 * N * (E + 1));
+    pos = table;
+    const int jumps = 2 * al16(2 * N);
+    const int tb = (PH & PH_TB) ? table + (jumps > 2 * N ? jumps : al16(2 * N)) : 0;
+    const int mirror = (PH & PH_ADD) ? al16(20 * N) : 0;
+    int top = tb > mirror ? tb : mirror;
+    stage = words = jw = top;
+    if ((PH & PH_TB) && (PH & PH_ADD)) {
+      words = stage + al16(2 * K);
+      jw = words + al16(4 * nw);
+      top = jw + al16(4 * nw);
     }
-    if (k < K) {
-      wag[k] = pi == i ? -1 : nid;
-      war[k] = pj == j ? -1 : j - 1;
+    const int oc = E < OUT_CACHE ? E : OUT_CACHE;
+    cache = al16(8 * N);
+    queue = cache + al16(2 * N * oc);
+    const int sort = (PH & PH_SORT) ? queue + al16(2 * N) : 0;
+    bytes = top > sort ? top : sort;
+  }
+};
+
+// Traceback of one window by its warp, from (bi, rl) over the codes `wc`:
+// the walk of lockstep_plain.tb_lockstep_plain. Moves k < K go to the stage
+// (STAGE) or to ag/ar in device memory. Returns the number of moves, or -1
+// when the walk does not reach (0, 0) within K + 2 moves; in every lane.
+//
+// The prologue builds the predecessor table, all lanes at once; a move then
+// needs only its code byte from device memory. A round speculates up to
+// 32 moves, one a lane: lane l takes the position l guessed moves ahead (to the
+// row's first predecessor, diagonally; vertically in column 0; horizontally
+// in row 0), loads its code, all lanes at once, and computes its real move.
+// A guessed move goes to row f(r), the row's first predecessor (f(0) = 0),
+// and to column max(c - 1, 0), so lane l's position is (f^l(i), max(j - l,
+// 0)): f is the table's first slot, the prologue tabulates f^4 and f^16,
+// and a lane reaches f^l(i) in at most seven lookups (-1 past the table's
+// rows: no guess).
+// Lanes 0..c-1 take their moves, c - 1 being the first lane whose real
+// move is not the next lane's position (or the last position before (0, 0)
+// or the step cap); the next round starts where lane c - 1's move ends. A
+// wrong guess costs a round, never a wrong move.
+template <bool STAGE>
+__device__ int tb_phase(const Win& w, int nc, const uint8_t* __restrict__ wc, int Lp, int bi,
+                        int rl, int K, unsigned char* sm, const ReadLayout& lay, int* wag,
+                        int* war) {
+  const int lane = threadIdx.x & 31;
+  const int N = w.N, E = w.E, HORIZ = 2 * E, RW = E + 1;
+  int16_t* rt = (int16_t*)sm;
+  int16_t* pos16 = (int16_t*)(sm + lay.pos);
+  uint16_t* stage = (uint16_t*)(sm + lay.stage);
+  int* jw = (int*)(sm + lay.jw);
+  long long t0 = RS_CLOCK();
+  for (int n0 = 0; n0 < N; n0 += 256) {
+    int v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int n = n0 + 32 * u + lane;
+      v[u] = n < N ? w.pos_of[n] : 0;
     }
-    ++k;
-    i = pi;
-    j = pj;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int n = n0 + 32 * u + lane;
+      if (n < N) pos16[n] = int16_t(v[u] + 1);
+    }
   }
-  if (i != 0 || j != 0) {
-    st.error[b] = 3;
-    klen[b] = 0;
-  } else {
-    klen[b] = k;
+  __syncwarp();
+  for (int r0 = 0; r0 < nc; r0 += 32 * TB_ROWS) {
+    int nid[TB_ROWS], ic[TB_ROWS], p[TB_ROWS][NW_PRE_E];
+#pragma unroll
+    for (int u = 0; u < TB_ROWS; ++u) {
+      const int r = r0 + 32 * u + lane;
+      nid[u] = r < nc ? clampi(w.sorted[r], 0, N - 1) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < TB_ROWS; ++u) {
+      const int* ie = w.in_edges + size_t(nid[u]) * E;
+      ic[u] = w.in_count[nid[u]];
+#pragma unroll
+      for (int e = 0; e < NW_PRE_E; ++e) p[u][e] = e < E ? ie[e] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < TB_ROWS; ++u) {
+      const int r = r0 + 32 * u + lane;
+      if (r < nc) {
+        int16_t* row = rt + size_t(r) * RW;
+        row[0] = int16_t(nid[u]);
+#pragma unroll
+        for (int e = 0; e < NW_PRE_E; ++e)
+          if (e < E) row[1 + e] = ic[u] == 0 ? int16_t(0) : pos16[clampi(p[u][e], 0, N - 1)];
+        for (int e = NW_PRE_E; e < E; ++e)
+          row[1 + e] = ic[u] == 0 ? int16_t(0)
+                                  : pos16[clampi(w.in_edges[size_t(nid[u]) * E + e], 0, N - 1)];
+      }
+    }
   }
+  __syncwarp();  // the table, and the last reads of pos16
+  // the jump tables f^4 and f^16 over rows 0..last, where pos16 was
+  const int last = min(nc, N - 1);
+  int16_t* f4 = pos16;
+  int16_t* f16 = f4 + al16(2 * N) / 2;
+  auto hop1 = [&](int x) {
+    return x < 0 || x > last ? -1 : x == 0 ? 0 : int(rt[size_t(x - 1) * RW + 1]);
+  };
+  auto hop = [&](const int16_t* f, int x) { return x < 0 || x > last ? -1 : int(f[x]); };
+  for (int r = lane; r <= last; r += 32) f4[r] = int16_t(hop1(hop1(hop1(hop1(r)))));
+  __syncwarp();
+  for (int r = lane; r <= last; r += 32) f16[r] = int16_t(hop(f4, hop(f4, hop(f4, hop(f4, r)))));
+  __syncwarp();
+  long long t1 = RS_CLOCK();
+  int i = bi, j = rl, k = 0, rounds = 0;
+  while ((i != 0 || j != 0) && k < K + 2) {
+    // lane l's position: l guessed moves from (i, j); live while it is not
+    // (0, 0) and every row on the way is in the table
+    int mi = i, mj = j;
+    bool live = lane == 0;
+    if (lane > 0) {
+      int ci = lane & 16 ? hop(f16, i) : i;
+      for (int q = (lane >> 2) & 3; q > 0; --q) ci = hop(f4, ci);
+      for (int q = lane & 3; q > 0; --q) ci = hop1(ci);
+      mi = ci;
+      mj = max(j - lane, 0);
+      live = ci >= 0 && (ci != 0 || mj != 0);
+    }
+    // the real move from there, as tb_lockstep_plain makes it
+    int code = HORIZ;
+    if (live && mi != 0) code = wc[size_t(clampi(mi - 1, 0, N - 1)) * Lp + clampi(mj, 0, Lp - 1)];
+    int ni = mi, nj = mj - 1, nid = -1;
+    if (live && code != HORIZ) {
+      // a row in the table: the NW's best_i is at most nc, and a move goes
+      // to a smaller row; the clamp only keeps a state the chain never
+      // makes inside the table, as hop1 does
+      const int r = min(mi - 1, nc - 1), e = code % E;
+      nid = rt[size_t(r) * RW];
+      ni = rt[size_t(r) * RW + 1 + e];
+      nj = code < E ? mj - 1 : mj;
+    }
+    const int li = __shfl_down_sync(FULL, mi, 1), lj = __shfl_down_sync(FULL, mj, 1);
+    const int llive = __shfl_down_sync(FULL, int(live), 1);
+    const unsigned steps = __ballot_sync(FULL, live && k + lane < K + 2);
+    const unsigned hits = __ballot_sync(FULL, lane < 31 && llive && ni == li && nj == lj);
+    const int c = min(~steps ? __ffs(~steps) - 1 : 32, ~hits ? __ffs(~hits) : 32);
+    if (lane < c && k + lane < K) {
+      const int kk = k + lane, agv = ni == mi ? -1 : nid;
+      if (STAGE) {
+        stage[kk] = uint16_t((agv + 1) | (nj != mj ? 0x8000 : 0));
+        if ((kk & 31) == 0) jw[kk >> 5] = mj;
+      } else {
+        wag[kk] = agv;
+        war[kk] = nj == mj ? -1 : mj - 1;
+      }
+    }
+    i = __shfl_sync(FULL, ni, c - 1);
+    j = __shfl_sync(FULL, nj, c - 1);
+    k += c;
+    ++rounds;
+  }
+  const bool done = i == 0 && j == 0;
+  if (STAGE && done) {  // the consumed-base bits, a word per 32 moves
+    uint32_t* words = (uint32_t*)(sm + lay.words);
+    __syncwarp();
+    const int ks = min(k, K);
+    for (int q0 = 0; q0 < ks; q0 += 32) {
+      const int q = q0 + lane;
+      const unsigned m = __ballot_sync(FULL, q < ks && (stage[q] & 0x8000));
+      if (lane == 0) words[q0 >> 5] = m;
+    }
+  }
+  RS_ADD(RS_TB_WINDOWS, 1);
+  RS_ADD(RS_TB_TABLE_CYCLES, t1 - t0);
+  RS_ADD(RS_TB_WALK_CYCLES, RS_CLOCK() - t1);
+  RS_ADD(RS_TB_STEPS, k);
+  RS_ADD(RS_TB_ROUNDS, rounds);
+  (void)t0;
+  (void)t1;
+  (void)rounds;
+  return done ? k : -1;
 }
+
+// The add's moves: ag/ar in device memory (the add alone), or the fused
+// kernel's stage, where a step's ar is the read column before it less one:
+// the column before its 32-step word less the bases consumed in the word
+// before it.
+struct DeviceMoves {
+  const int* ag;
+  const int* ar;
+  __device__ int gid(int pos) const { return ag[pos]; }
+  __device__ int col(int pos) const { return ar[pos]; }
+};
+struct StageMoves {
+  const uint16_t* stage;
+  const uint32_t* words;
+  const int* jw;
+  __device__ int gid(int pos) const { return (stage[pos] & 0x7fff) - 1; }
+  __device__ int col(int pos) const {
+    const int q = pos >> 5;
+    return (stage[pos] & 0x8000) ? jw[q] - __popc(words[q] & ((1u << (pos & 31)) - 1)) - 1 : -1;
+  }
+};
 
 // The sequential alignment-to-graph walk at the state's caps (E in- and
 // out-edges, A aligned nodes): 1 when a new node makes the count reach N;
 // 6 when a clique list or an edge list would overflow (that list is left
 // alone). The walk stops after the step that sets the first error.
+// Returns the error, in every lane.
 //
-// One warp per window. Every lane computes the walk's scalars alike (the
-// node count, the error, the head, the node of each step); lane 0 makes the
-// step's single writes, lane k the writes of a list's slot k. The node
-// fields the walk reads on every step live in shared memory for the walk:
-// the bases, the in-, out- and aligned counts and the coverage; the counts
-// and the coverage go back to device memory at its end, a base at once.
-// Correct under the invariant the walk keeps: a clique list holds distinct
-// nodes other than its owner, the same count for every member.
-constexpr int ADD_WARPS = 4;
-
-inline size_t add_warp_smem(int N) { return size_t(N) * 5 * 4; }
-
-__global__ void __launch_bounds__(ADD_WARPS * 32)
-lk_add_kernel(State st, int B, int wpb, const int* __restrict__ ag, const int* __restrict__ ar,
-              const int* __restrict__ klen, int K, const uint8_t* __restrict__ read,
-              const int* __restrict__ wts, int Lr, const bool* __restrict__ act) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int b = blockIdx.x * wpb + warp;
-  if (b >= B || !act[b] || st.error[b] != 0) return;
-  const Win w(st, b);
+// The warp walks together. Every lane computes the walk's scalars alike
+// (the node count, the error, the head, the node of each step); lane 0
+// makes the step's single writes, lane k the writes of a list's slot k.
+// The node fields the walk reads on every step live in shared memory for
+// the walk (`s_mirror`, ReadLayout): the bases, the in-, out- and aligned
+// counts and the coverage; the counts and the coverage go back to device
+// memory at its end, a base at once. Correct under the invariant the walk
+// keeps: a clique list holds distinct nodes other than its owner, the same
+// count for every member.
+template <class Moves>
+__device__ int add_phase(const State& st, int b, const Win& w, int* s_mirror, const Moves& mv,
+                         int kl, int K, const uint8_t* __restrict__ read,
+                         const int* __restrict__ wts, int Lr) {
+  const int lane = threadIdx.x & 31;
   const int N = w.N, E = w.E, A = w.A;
-  int* s_nodes = (int*)smem + size_t(warp) * 5 * N;
-  int* s_in = s_nodes + N;
+  int* s_in = s_mirror;
   int* s_out = s_in + N;
-  int* s_alc = s_out + N;
+  int* s_nodes = s_out + N;
+  int* s_alc = s_nodes + N;
   int* s_cov = s_alc + N;
+  long long clk0 = RS_CLOCK();
   const int nc0 = st.node_count[b];
   for (int n = lane; n < nc0; n += 32) {
     s_nodes[n] = w.nodes[n];
@@ -450,11 +670,8 @@ lk_add_kernel(State st, int B, int wpb, const int* __restrict__ ag, const int* _
     s_alc[n] = w.al_count[n];
     s_cov[n] = w.cov[n];
   }
-  const int* wag = ag + size_t(b) * K;
-  const int* war = ar + size_t(b) * K;
   const uint8_t* wread = read + size_t(b) * Lr;
   const int* wwt = wts ? wts + size_t(b) * Lr : nullptr;
-  const int kl = klen[b];
   int nc = nc0, err = 0, head = -1, prev_w = 0;
   for (int t0 = 0; t0 < kl && err == 0; t0 += 32) {
     // lane i holds step t0 + i: its graph node, the read's base (-1 where
@@ -462,10 +679,10 @@ lk_add_kernel(State st, int B, int wpb, const int* __restrict__ ag, const int* _
     int m_gid = -1, m_base = -1, m_w = 0;
     if (t0 + lane < kl) {
       const int pos = clampi(kl - 1 - t0 - lane, 0, K - 1);
-      const int a = war[pos];
+      const int a = mv.col(pos);
       if (a != -1) {
         const int rp = clampi(a, 0, Lr - 1);
-        m_gid = wag[pos];
+        m_gid = mv.gid(pos);
         m_base = wread[rp];
         m_w = wwt ? wwt[rp] : 1;
       }
@@ -575,43 +792,180 @@ lk_add_kernel(State st, int B, int wpb, const int* __restrict__ ag, const int* _
     st.node_count[b] = nc;
     st.error[b] = err;
   }
+  RS_ADD(RS_ADD_WINDOWS, 1);
+  RS_ADD(RS_ADD_CYCLES, RS_CLOCK() - clk0);
+  RS_ADD(RS_ADD_STEPS, kl);
+  (void)clk0;
+  return err;
 }
 
-// Kahn's sort: seeds by ascending id, FIFO expansion in out-edge order.
-// Rewrites positions 0..node_count-1 of sorted and pos_of (-1 where a node
-// is not placed); 100 when not every node is placed.
-__global__ void __launch_bounds__(WIN_NT)
-lk_topsort_kernel(State st, int B, const bool* __restrict__ act, int* __restrict__ local_g) {
-  const int b = blockIdx.x * WIN_NT + threadIdx.x;
-  if (b >= B || !act[b] || st.error[b] != 0) return;
-  const Win w(st, b);
-  const int N = w.N, E = w.E, nc = st.node_count[b];
-  int* local = local_g + size_t(b) * N;
+// Kahn's sort of one window by its warp: seeds by ascending id, FIFO
+// expansion in out-edge order (lockstep_plain.topsort_lockstep_plain).
+// Rewrites positions 0..nc-1 of sorted and pos_of (-1 where a node is not
+// placed); returns 100 when not every node is placed, else 0.
+//
+// From shared memory (ReadLayout): the in-counts (decremented in place)
+// and out-counts the add left in its mirror, or loaded (LOAD, the sort
+// alone); the lanes first copy each node's first OUT_CACHE out-edges
+// there; then one lane per out-edge of the popped node decrements its
+// target's count, and a ballot enqueues the nodes that reached zero, in
+// edge order. Popping a node reads shared memory only (device memory for
+// out-edge slots past OUT_CACHE). Correct because an out-list holds
+// distinct nodes in a graph the add left without error.
+template <bool LOAD>
+__device__ int sort_phase(const Win& w, int nc, unsigned char* sm, const ReadLayout& lay) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1;
+  const int N = w.N, E = w.E, OC = min(E, OUT_CACHE);
+  int* s_loc = (int*)sm;
+  const int* s_oc = s_loc + N;
+  uint16_t* s_cache = (uint16_t*)(sm + lay.cache);
+  uint16_t* s_queue = (uint16_t*)(sm + lay.queue);
+  long long t0 = RS_CLOCK();
+  if (LOAD) {
+    for (int n = lane; n < nc; n += 32) {
+      s_loc[n] = w.in_count[n];
+      s_loc[N + n] = w.out_count[n];
+    }
+    __syncwarp();
+  }
   int tail = 0;
-  for (int n = 0; n < nc; ++n) {
-    const int ic = w.in_count[n];
-    local[n] = ic;
-    w.pos_of[n] = -1;
+  for (int n0 = 0; n0 < nc; n0 += 32) {
+    const int n = n0 + lane;
+    int ic = 1;
+    if (n < nc) {
+      ic = s_loc[n];
+      const int oc = min(s_oc[n], OC);
+      int o[OUT_CACHE];
+#pragma unroll
+      for (int q = 0; q < OUT_CACHE; ++q) o[q] = q < oc ? w.out_edges[size_t(n) * E + q] : 0;
+#pragma unroll
+      for (int q = 0; q < OUT_CACHE; ++q)
+        if (q < oc) s_cache[size_t(q) * N + n] = uint16_t(clampi(o[q], 0, N - 1));
+    }
+    const unsigned seeds = __ballot_sync(FULL, ic == 0);
     if (ic == 0) {
-      w.sorted[tail] = n;
-      w.pos_of[n] = tail++;
+      const int at = tail + __popc(seeds & below);
+      s_queue[at] = uint16_t(n);
+      w.sorted[at] = n;
+      w.pos_of[n] = at;
     }
+    tail += __popc(seeds);
   }
+  __syncwarp();
+  int node = tail > 0 ? s_queue[0] : 0;
   for (int i = 0; i < tail; ++i) {
-    const int node = w.sorted[i];
-    const int oc = w.out_count[node];
-    const int* ol = w.out_edges + size_t(node) * E;
-    for (int e = 0; e < oc; ++e) {
-      const int out = clampi(ol[e], 0, N - 1);
-      if (out < nc && --local[out] == 0) {
-        w.sorted[tail] = out;
-        w.pos_of[out] = tail++;
+    // the next node, where it is already queued; its count and first
+    // out-edge slot are loaded with this node's
+    const bool ahead = i + 1 < tail;
+    const int next = ahead ? s_queue[i + 1] : 0;
+    const int oc = s_oc[node];
+    const int first = lane < OC ? s_cache[size_t(lane) * N + node] : 0;
+    for (int e0 = 0; e0 < oc; e0 += 32) {
+      const int e = e0 + lane;
+      int out = 0;
+      bool zero = false;
+      if (e < oc) {
+        out = e < OC ? first : clampi(w.out_edges[size_t(node) * E + e], 0, N - 1);
+        if (out < nc) {
+          const int l = s_loc[out] - 1;
+          s_loc[out] = l;
+          zero = l == 0;
+        }
       }
+      const unsigned z = __ballot_sync(FULL, zero);
+      if (zero) {
+        const int at = tail + __popc(z & below);
+        s_queue[at] = uint16_t(out);
+        w.sorted[at] = out;
+        w.pos_of[out] = at;
+      }
+      tail += __popc(z);
     }
+    __syncwarp();
+    node = ahead ? next : (i + 1 < tail ? s_queue[i + 1] : 0);
   }
-  for (int q = tail; q < nc; ++q) w.sorted[q] = -1;
-  if (tail != nc) st.error[b] = 100;
+  if (tail != nc) {  // a node left unplaced: its count never reached zero
+    for (int q = tail + lane; q < nc; q += 32) w.sorted[q] = -1;
+    for (int n = lane; n < nc; n += 32)
+      if (s_loc[n] > 0) w.pos_of[n] = -1;
+  }
+  RS_ADD(RS_SORT_WINDOWS, 1);
+  RS_ADD(RS_SORT_CYCLES, RS_CLOCK() - t0);
+  RS_ADD(RS_SORT_NODES, nc);
+  (void)t0;
+  return tail != nc ? 100 : 0;
 }
+
+// One warp per window, the phases of PH in order, each only where the
+// window is active and has no error:
+// - traceback (lockstep_plain.tb_lockstep_plain): from (best_i, rl) over
+//   the codes; writes klen (0 where it does not run or fails, and error 3
+//   then), and the moves to the stage (fused) or to ag/ar (alone, prefilled
+//   with -1 by the wrapper);
+// - add (add_lockstep_plain): the moves from the stage (fused) or ag/ar and
+//   klen (alone);
+// - topsort (topsort_lockstep_plain).
+// Between phases the warp synchronises: lane 0's device-memory writes in
+// the add are then visible to every lane of the sort.
+template <int PH>
+__global__ void __launch_bounds__(READ_WARPS * 32, READ_MIN_BLOCKS)
+lk_read_kernel(State st, int B, int wpb, int warp_bytes, const uint8_t* __restrict__ codes,
+               int Lp, const int* __restrict__ best_i, const int* __restrict__ rl,
+               const bool* __restrict__ act, int* ag, int* ar, int* klen, int K,
+               const uint8_t* __restrict__ read, const int* __restrict__ wts, int Lr) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * wpb + warp;
+  if (b >= B) return;
+  if (!act[b] || st.error[b] != 0) {
+    if ((PH & PH_TB) && lane == 0) klen[b] = 0;
+    return;
+  }
+  unsigned char* sm = smem + size_t(warp) * warp_bytes;
+  const ReadLayout lay(PH, st.N, st.E, K);
+  const Win w(st, b);
+  int kl = 0;
+  if (PH & PH_TB) {
+    constexpr bool stage = (PH & PH_ADD) != 0;
+    kl = tb_phase<stage>(w, st.node_count[b], codes + size_t(b) * w.N * Lp, Lp, best_i[b], rl[b],
+                         K, sm, lay, stage ? nullptr : ag + size_t(b) * K,
+                         stage ? nullptr : ar + size_t(b) * K);
+    if (lane == 0) {
+      klen[b] = kl < 0 ? 0 : kl;
+      if (kl < 0) st.error[b] = 3;
+    }
+    if (kl < 0) return;
+    __syncwarp();  // the stage, and the table's last reads before the add's mirror
+  } else if (PH & PH_ADD) {
+    kl = klen[b];
+  }
+  int nc = 0;
+  if (PH & PH_ADD) {
+    int err;
+    if constexpr ((PH & PH_TB) != 0) {
+      const StageMoves mv{(const uint16_t*)(sm + lay.stage), (const uint32_t*)(sm + lay.words),
+                          (const int*)(sm + lay.jw)};
+      err = add_phase(st, b, w, (int*)sm, mv, kl, K, read, wts, Lr);
+    } else {
+      const DeviceMoves mv{ag + size_t(b) * K, ar + size_t(b) * K};
+      err = add_phase(st, b, w, (int*)sm, mv, kl, K, read, wts, Lr);
+    }
+    if (err != 0) return;
+    __syncwarp();  // the add's device-memory and mirror writes, before the sort
+    nc = st.node_count[b];
+  }
+  if (PH & PH_SORT) {
+    if (!(PH & PH_ADD)) nc = st.node_count[b];
+    if (sort_phase<(PH & PH_ADD) == 0>(w, nc, sm, lay) != 0 && lane == 0) st.error[b] = 100;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Consensus (row 5): one thread per window
+// ---------------------------------------------------------------------------
+
+constexpr int WIN_NT = 64;
 
 // One row of the heaviest-edge pass with the reference's tie-breaks.
 __device__ void consensus_row(const Win& w, const int* cscore, int nid, bool skip_cleared,
@@ -761,6 +1115,37 @@ int nw_launch(void* const* st, int B, int N, int E, int A, const void* read, int
 
 inline int nw_cols_per_lane(int Lr) { return (Lr + 32) / 32; }
 
+template <int PH>
+int read_launch(void* const* st, int B, int N, int E, int A, const void* codes, int Lp,
+                const void* best_i, const void* rl, const void* act, void* ag, void* ar,
+                void* klen, int K, const void* read, const void* wts, int Lr,
+                cudaStream_t stream) {
+  const size_t wb = ReadLayout(PH, N, E, K).bytes;
+  cudaError_t e;
+  const int wpb = warps_per_block(lk_read_kernel<PH>, wb, READ_WARPS, &e);
+  if (!wpb) return int(e);
+  lk_read_kernel<PH><<<(B + wpb - 1) / wpb, wpb * 32, wpb * wb, stream>>>(
+      make_state(st, N, E, A), B, wpb, int(wb), (const uint8_t*)codes, Lp, (const int*)best_i,
+      (const int*)rl, (const bool*)act, (int*)ag, (int*)ar, (int*)klen, K, (const uint8_t*)read,
+      (const int*)wts, Lr);
+  return int(cudaGetLastError());
+}
+
+// Windows of lk_read_kernel<PH> the card holds at once (0 on an error).
+template <int PH>
+int read_in_flight(int N, int E, int K) {
+  const size_t wb = ReadLayout(PH, N, E, K).bytes;
+  cudaError_t e;
+  const int wpb = warps_per_block(lk_read_kernel<PH>, wb, READ_WARPS, &e);
+  int dev = 0, sms = 0, blocks = 0;
+  if (!wpb || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, lk_read_kernel<PH>, wpb * 32,
+                                                    wpb * wb) != cudaSuccess)
+    return 0;
+  return blocks * wpb * sms;
+}
+
 }  // namespace
 
 extern "C" {
@@ -794,33 +1179,54 @@ int lk_nw_launch(void* const* st, int B, int N, int E, int A, const void* read, 
   }
 }
 
-int lk_tb_launch(void* const* st, int B, int N, int E, int A, const void* codes, int Lp,
-                 const void* best_i, const void* rl, const void* act, void* ag, void* ar,
-                 void* klen, int K, void* stream) {
-  lk_tb_kernel<<<win_blocks(B), WIN_NT, 0, (cudaStream_t)stream>>>(
-      make_state(st, N, E, A), B, (const uint8_t*)codes, Lp, (const int*)best_i,
-      (const int*)rl, (const bool*)act, (int*)ag, (int*)ar, (int*)klen, K);
-  return int(cudaGetLastError());
+// The traceback, add and topsort of one read: `phases` 7 runs all three in
+// one launch (the stage carries the moves; ag and ar are not used); 1, 2 or
+// 4 runs one alone (the traceback writes ag/ar, prefilled with -1, and
+// klen; the add reads them). Buffers a launch does not use may be null.
+int lk_read_launch(void* const* st, int B, int N, int E, int A, int phases, const void* codes,
+                   int Lp, const void* best_i, const void* rl, const void* act, void* ag,
+                   void* ar, void* klen, int K, const void* read, const void* wts, int Lr,
+                   void* stream) {
+  switch (phases) {
+#define READ_CASE(PH)                                                                     \
+  case PH:                                                                                \
+    return read_launch<PH>(st, B, N, E, A, codes, Lp, best_i, rl, act, ag, ar, klen, K, read, \
+                           wts, Lr, (cudaStream_t)stream);
+    READ_CASE(PH_TB) READ_CASE(PH_ADD) READ_CASE(PH_SORT) READ_CASE(PH_ALL)
+#undef READ_CASE
+    default:
+      return int(cudaErrorInvalidValue);
+  }
 }
 
-int lk_add_launch(void* const* st, int B, int N, int E, int A, const void* ag, const void* ar,
-                  const void* klen, int K, const void* read, const void* wts, int Lr,
-                  const void* act, void* stream) {
-  const size_t wb = add_warp_smem(N);
-  cudaError_t e;
-  const int wpb = warps_per_block(lk_add_kernel, wb, ADD_WARPS, &e);
-  if (!wpb) return int(e);
-  lk_add_kernel<<<(B + wpb - 1) / wpb, wpb * 32, wpb * wb, (cudaStream_t)stream>>>(
-      make_state(st, N, E, A), B, wpb, (const int*)ag, (const int*)ar, (const int*)klen, K,
-      (const uint8_t*)read, (const int*)wts, Lr, (const bool*)act);
-  return int(cudaGetLastError());
+// Windows lk_read_kernel<phases> holds on the card at once for a graph cap
+// of N nodes, E edges a list and K moves (0 for an unknown `phases`).
+int lk_read_windows_in_flight(int phases, int N, int E, int K) {
+  switch (phases) {
+    case PH_TB: return read_in_flight<PH_TB>(N, E, K);
+    case PH_ADD: return read_in_flight<PH_ADD>(N, E, K);
+    case PH_SORT: return read_in_flight<PH_SORT>(N, E, K);
+    case PH_ALL: return read_in_flight<PH_ALL>(N, E, K);
+    default: return 0;
+  }
 }
 
-int lk_topsort_launch(void* const* st, int B, int N, int E, int A, const void* act, void* local,
-                      void* stream) {
-  lk_topsort_kernel<<<win_blocks(B), WIN_NT, 0, (cudaStream_t)stream>>>(
-      make_state(st, N, E, A), B, (const bool*)act, (int*)local);
-  return int(cudaGetLastError());
+// The debug build's counters (-DLK_READ_STATS=1): copies the RS_COUNT
+// counters into `out` (host memory) and zeroes them when `reset`; returns
+// -1 in a normal build.
+int lk_read_stats(unsigned long long* out, int reset) {
+#ifdef LK_READ_STATS
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_read_stats, sizeof(g_read_stats));
+  if (e == cudaSuccess && reset) {
+    static const unsigned long long zero[RS_COUNT] = {};
+    e = cudaMemcpyToSymbol(g_read_stats, zero, sizeof(zero));
+  }
+  return int(e);
+#else
+  (void)out;
+  (void)reset;
+  return -1;
+#endif
 }
 
 int lk_consensus_launch(void* const* st, int B, int N, int E, int A, const void* act,

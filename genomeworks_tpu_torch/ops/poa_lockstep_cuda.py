@@ -2,7 +2,12 @@
 Pallas kernels of genomeworks_tpu/ops/poa_lockstep_pallas.py.
 
 The source is ``csrc/poa_lockstep.cu``; the plain PyTorch versions are in
-``poa/lockstep_plain.py``. Each wrapper takes the graph state dict of
+``poa/lockstep_plain.py``. A read on the main path is two launches:
+:func:`nw_lockstep` and :func:`read_lockstep` (the traceback, add and
+topsort fused in ``lk_read_kernel``); :func:`tb_lockstep`,
+:func:`add_lockstep` and :func:`topsort_lockstep` launch that kernel's
+single-phase instantiations, so that each phase can be held to its plain
+version. Each wrapper takes the graph state dict of
 ``torch_poa.init_graph_state`` (updated in place) and the bucket's tensors,
 checks their types, shapes, devices and contiguity (metadata only: no host
 sync), and on CUDA tensors launches its kernel on the current stream, or
@@ -25,6 +30,12 @@ SOURCE = "poa_lockstep.cu"
 #: priority codes are stored as uint8 and reach 3E + 1
 MAX_EDGES = 84
 
+#: lk_read_kernel's phases (its template parameter): traceback, add,
+#: topsort, or all three
+PH_TB, PH_ADD, PH_SORT, PH_ALL = 1, 2, 4, 7
+#: lk_read_kernel keeps node ids and positions in 16 bits
+MAX_READ_NODES = 32767
+
 _lib = None
 
 
@@ -34,16 +45,16 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     st = [ctypes.POINTER(ctypes.c_void_p)] + [I] * 4
     for name, rest in (
         ("lk_nw_launch", [P, I, P, P, P, I, P, P, I, I, I, I, P]),
-        ("lk_tb_launch", [P, I, P, P, P, P, P, P, I, P]),
-        ("lk_add_launch", [P, P, P, I, P, P, I, P, P]),
-        ("lk_topsort_launch", [P, P, P]),
+        ("lk_read_launch", [I, P, I, P, P, P, P, P, P, I, P, P, I, P]),
         ("lk_consensus_launch", [P, P, P, P, P, P, P]),
     ):
         fn = getattr(lib, name)
         fn.argtypes = st + rest
         fn.restype = ctypes.c_int
-    lib.lk_nw_ring_width.argtypes = [I]
-    lib.lk_nw_ring_width.restype = ctypes.c_int
+    for name, args in (("lk_nw_ring_width", [I]), ("lk_read_windows_in_flight", [I] * 4),
+                       ("lk_read_stats", [ctypes.POINTER(ctypes.c_ulonglong), I])):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
@@ -130,9 +141,27 @@ def nw_lockstep(state, read, read_len, act, codes, D: int, gap: int, mismatch: i
     return best_i
 
 
-def tb_lockstep(state, codes, best_i, read_len, act, K: int):
-    """Traceback over ``codes`` from (best_i, read_len): (ag, ar (B, K)
-    int32, klen (B,) int32); sets error 3 (``lockstep_plain.tb_lockstep_plain``)."""
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _read_launch(state, phases, K, codes=None, best_i=None, read_len=None, act=None, ag=None,
+                 ar=None, klen=None, read=None, weights=None):
+    """Launch lk_read_kernel<phases> on checked CUDA tensors, or raise."""
+    B, N = state["nodes"].shape
+    E, A = state["in_edges"].shape[2], state["al"].shape[2]
+    if N > MAX_READ_NODES:
+        raise ValueError(f"lk_read_kernel takes at most {MAX_READ_NODES} nodes, got N={N}")
+    Lp = codes.shape[2] if codes is not None else 0
+    Lr = read.shape[1] if read is not None else 0
+    rc = load_library().lk_read_launch(
+        _ptrs(state), B, N, E, A, phases, _ptr(codes), Lp, _ptr(best_i), _ptr(read_len),
+        _ptr(act), _ptr(ag), _ptr(ar), _ptr(klen), K, _ptr(read), _ptr(weights), Lr,
+        _stream(act.device))
+    _raise_on(rc, f"lk_read_kernel<{phases}>")
+
+
+def _check_tb(state, codes, best_i, read_len, act, K):
     B, N, E, A, dev = _check_state(state, act)
     Lp = codes.shape[2] if codes.dim() == 3 else -1
     _check("codes", codes, torch.uint8, (B, N, Lp), dev)
@@ -140,15 +169,28 @@ def tb_lockstep(state, codes, best_i, read_len, act, K: int):
     _check("read_len", read_len, torch.int32, (B,), dev)
     if K < 1:
         raise ValueError(f"K must be positive, got {K}")
+    return B, dev
+
+
+def _check_read(state, read, weights, act):
+    B, N, E, A, dev = _check_state(state, act)
+    Lr = read.shape[1] if read.dim() == 2 else -1
+    _check("read", read, torch.uint8, (B, Lr), dev)
+    if weights is not None:
+        _check("weights", weights, torch.int32, (B, Lr), dev)
+
+
+def tb_lockstep(state, codes, best_i, read_len, act, K: int):
+    """Traceback over ``codes`` from (best_i, read_len): (ag, ar (B, K)
+    int32, klen (B,) int32); sets error 3 (``lockstep_plain.tb_lockstep_plain``).
+    On CUDA the traceback alone of ``lk_read_kernel``."""
+    B, dev = _check_tb(state, codes, best_i, read_len, act, K)
     if dev.type == "cpu":
         return plain.tb_lockstep_plain(state, codes, best_i, read_len, act, K)
     ag = torch.full((B, K), -1, dtype=torch.int32, device=dev)
     ar = torch.full((B, K), -1, dtype=torch.int32, device=dev)
     klen = torch.empty(B, dtype=torch.int32, device=dev)
-    rc = load_library().lk_tb_launch(
-        _ptrs(state), B, N, E, A, codes.data_ptr(), Lp, best_i.data_ptr(), read_len.data_ptr(),
-        act.data_ptr(), ag.data_ptr(), ar.data_ptr(), klen.data_ptr(), K, _stream(dev))
-    _raise_on(rc, "lk_tb_kernel")
+    _read_launch(state, PH_TB, K, codes, best_i, read_len, act, ag=ag, ar=ar, klen=klen)
     tb_lockstep.launches += 1
     return ag, ar, klen
 
@@ -156,39 +198,55 @@ def tb_lockstep(state, codes, best_i, read_len, act, K: int):
 def add_lockstep(state, ag, ar, klen, read, weights, act):
     """Add the alignments to the graphs in place; ``weights`` (B, Lr) int32
     or None for unit weights; sets errors 1 and 6
-    (``lockstep_plain.add_lockstep_plain``). Returns the state."""
+    (``lockstep_plain.add_lockstep_plain``). Returns the state. On CUDA the
+    add alone of ``lk_read_kernel``."""
     B, N, E, A, dev = _check_state(state, act)
     K = ag.shape[1] if ag.dim() == 2 else -1
-    Lr = read.shape[1] if read.dim() == 2 else -1
     _check("ag", ag, torch.int32, (B, K), dev)
     _check("ar", ar, torch.int32, (B, K), dev)
     _check("klen", klen, torch.int32, (B,), dev)
-    _check("read", read, torch.uint8, (B, Lr), dev)
-    if weights is not None:
-        _check("weights", weights, torch.int32, (B, Lr), dev)
+    _check_read(state, read, weights, act)
     if dev.type == "cpu":
         return plain.add_lockstep_plain(state, ag, ar, klen, read, weights, act)
-    rc = load_library().lk_add_launch(
-        _ptrs(state), B, N, E, A, ag.data_ptr(), ar.data_ptr(), klen.data_ptr(), K,
-        read.data_ptr(), None if weights is None else weights.data_ptr(), Lr, act.data_ptr(),
-        _stream(dev))
-    _raise_on(rc, "lk_add_kernel")
+    _read_launch(state, PH_ADD, K, act=act, ag=ag, ar=ar, klen=klen, read=read, weights=weights)
     add_lockstep.launches += 1
     return state
 
 
 def topsort_lockstep(state, act):
     """Kahn's sort of each graph in place; sets error 100
-    (``lockstep_plain.topsort_lockstep_plain``). Returns the state."""
+    (``lockstep_plain.topsort_lockstep_plain``). Returns the state. On CUDA
+    the topsort alone of ``lk_read_kernel``."""
     B, N, E, A, dev = _check_state(state, act)
     if dev.type == "cpu":
         return plain.topsort_lockstep_plain(state, act)
-    local = torch.empty((B, N), dtype=torch.int32, device=dev)
-    rc = load_library().lk_topsort_launch(_ptrs(state), B, N, E, A, act.data_ptr(),
-                                          local.data_ptr(), _stream(dev))
-    _raise_on(rc, "lk_topsort_kernel")
+    _read_launch(state, PH_SORT, 0, act=act)
     topsort_lockstep.launches += 1
     return state
+
+
+def read_lockstep(state, codes, best_i, read_len, read, weights, act, K: int):
+    """The traceback, add and topsort of one read, in place: what
+    :func:`tb_lockstep`, :func:`add_lockstep` and :func:`topsort_lockstep`
+    do one after the other (``lockstep_plain.read_lockstep_plain``), with
+    their errors 3, 1, 6 and 100. Returns klen (B,) int32, the traceback's
+    lengths. On CUDA one launch of ``lk_read_kernel``, the moves handed
+    from the traceback to the add in shared memory."""
+    B, dev = _check_tb(state, codes, best_i, read_len, act, K)
+    _check_read(state, read, weights, act)
+    if dev.type == "cpu":
+        return plain.read_lockstep_plain(state, codes, best_i, read_len, read, weights, act, K)
+    klen = torch.empty(B, dtype=torch.int32, device=dev)
+    _read_launch(state, PH_ALL, K, codes, best_i, read_len, act, klen=klen, read=read,
+                 weights=weights)
+    read_lockstep.launches += 1
+    return klen
+
+
+def read_windows_in_flight(phases: int, N: int, E: int, K: int) -> int:
+    """Windows of ``lk_read_kernel<phases>`` the card holds at once for a
+    graph cap of N nodes, E edges a list and K moves (needs the card)."""
+    return load_library().lk_read_windows_in_flight(phases, N, E, K)
 
 
 def consensus_lockstep(state, act):
@@ -210,7 +268,8 @@ def consensus_lockstep(state, act):
     return cons, cov, length, err
 
 
-#: the wrappers, in chain order
-KERNELS = (nw_lockstep, tb_lockstep, add_lockstep, topsort_lockstep, consensus_lockstep)
+#: the wrappers, in chain order, then the fused traceback, add and topsort
+KERNELS = (nw_lockstep, tb_lockstep, add_lockstep, topsort_lockstep, consensus_lockstep,
+           read_lockstep)
 for _k in KERNELS:
     _k.launches = 0

@@ -4,10 +4,11 @@ port of genomeworks_tpu/poa/lockstep.py.
 
 Per length bucket of windows, :func:`poa_batch_consensus_lockstep`
 
-  backbone (torch ops) -> [ nw -> tb -> add -> topsort ] per read -> consensus
+  backbone (torch ops) -> [ nw -> (tb -> add -> topsort) ] per read -> consensus
 
-with each phase a CUDA kernel (``ops/poa_lockstep_cuda.py``) on a CUDA
-device, or its plain version (``poa/lockstep_plain.py``) on the CPU. The
+on a CUDA device two kernel launches a read (``ops/poa_lockstep_cuda.py``:
+``nw_lockstep``, then ``read_lockstep``, the traceback, add and topsort in
+one), on the CPU their plain versions (``poa/lockstep_plain.py``). The
 graph state is ``torch_poa``'s (B, N) dict at the lockstep caps (E = 7,
 A = 8, N from :func:`lockstep_plan`). Windows that hit a cap or the ring
 distance D end with a nonzero status and are re-run by the caller
@@ -179,10 +180,8 @@ def run_bucket(seqs, wts, lens, nseqs, N: int, D: int, Lp: int, K: int, gap: int
         act = nseqs > s
         best_i = lk.nw_lockstep(state, seqs_t[s], lens_t[s], act, codes, D, gap, mismatch,
                                 match)
-        ag, ar, klen = lk.tb_lockstep(state, codes, best_i, lens_t[s], act, K)
-        lk.add_lockstep(state, ag, ar, klen, seqs_t[s], None if wts_t is None else wts_t[s],
-                        act)
-        lk.topsort_lockstep(state, act)
+        lk.read_lockstep(state, codes, best_i, lens_t[s], seqs_t[s],
+                         None if wts_t is None else wts_t[s], act, K)
     return lk.consensus_lockstep(state, nseqs > 0)
 
 

@@ -17,6 +17,9 @@ tier's own error codes in ``state["error"]``:
   would overflow its cap at the add;
 - 100: the topological sort does not place every node.
 
+``read_lockstep_plain`` is the traceback, add and topsort one after the
+other, the function of the fused kernel the main path launches a read.
+
 Each phase runs only on windows that are active and have no error, and
 sets an error only where there is none: the first error wins. A window
 with an error keeps it to the end and is re-run by the caller through the
@@ -237,6 +240,17 @@ def topsort_lockstep_plain(state, act):
     return st
 
 
+def read_lockstep_plain(state, codes, best_i, read_len, read, weights, act, K: int):
+    """The traceback, add and topsort of one read, one after the other:
+    ``tb_lockstep_plain`` -> ``add_lockstep_plain`` ->
+    ``topsort_lockstep_plain``, in place. Returns klen (B,) int32."""
+    read_lockstep_plain.calls += 1
+    ag, ar, klen = tb_lockstep_plain(state, codes, best_i, read_len, act, K)
+    add_lockstep_plain(state, ag, ar, klen, read, weights, act)
+    topsort_lockstep_plain(state, act)
+    return klen
+
+
 def consensus_lockstep_plain(state, act):
     """Heaviest path, branch completion and backward emission
     (``torch_poa.consensus_batched``). Returns (cons (B, N) uint8 backward,
@@ -248,5 +262,5 @@ def consensus_lockstep_plain(state, act):
 
 
 for _f in (nw_lockstep_plain, tb_lockstep_plain, add_lockstep_plain, topsort_lockstep_plain,
-           consensus_lockstep_plain):
+           consensus_lockstep_plain, read_lockstep_plain):
     _f.calls = 0

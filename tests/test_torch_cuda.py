@@ -210,8 +210,9 @@ def test_graph_export_matches_plain_on_gpu():
 
 def _lockstep_chain(windows, weights, D=None):
     """One bucket through the lockstep phases read by read, each kernel and
-    its plain version on clones of one state; asserts every output and the
-    whole state equal, and returns the statuses."""
+    its plain version on clones of one state, and the fused read_lockstep on
+    a clone of the state the NW left; asserts every output and the whole
+    state equal, and returns the statuses."""
     from genomeworks_tpu_torch.ops import poa_lockstep_cuda as lk
     from genomeworks_tpu_torch.poa import lockstep, lockstep_plain as lp
 
@@ -240,6 +241,7 @@ def _lockstep_chain(windows, weights, D=None):
         bk = lk.nw_lockstep(ks, seqs_t[s], lens_t[s], act, ck, D, -8, -6, 8)
         bp = lp.nw_lockstep_plain(ps, seqs_t[s], lens_t[s], act, cp, D, -8, -6, 8)
         same((ck, bk), (cp, bp))
+        fs = {k: v.clone() for k, v in ks.items()}
         tk = lk.tb_lockstep(ks, ck, bk, lens_t[s], act, K)
         tp = lp.tb_lockstep_plain(ps, cp, bp, lens_t[s], act, K)
         same(tk, tp)
@@ -249,6 +251,11 @@ def _lockstep_chain(windows, weights, D=None):
         lk.topsort_lockstep(ks, act)
         lp.topsort_lockstep_plain(ps, act)
         same((), ())
+        fk = lk.read_lockstep(fs, ck, bk, lens_t[s], seqs_t[s], w, act, K)
+        torch.cuda.synchronize()
+        assert torch.equal(fk, tp[2])
+        for k in torch_poa.STATE_KEYS:
+            assert torch.equal(fs[k], ps[k]), f"read_lockstep {k}"
         st = ks
     out = lk.consensus_lockstep(st, nseqs > 0)
     ref = lp.consensus_lockstep_plain(st, nseqs > 0)
@@ -261,16 +268,21 @@ def _lockstep_chain(windows, weights, D=None):
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "case", ["unit", "weighted", "small-ring", "edge-cap", "node-cap", "lane-edges",
-             "warp-edge", "widest", "distances", "caps", "wide-lists", "empty-weighted"])
+             "warp-edge", "widest", "distances", "caps", "wide-lists", "empty-weighted",
+             "spec", "short-walk", "waves"])
 def test_lockstep_kernels_match_plain_on_gpu(case):
-    """Each of the five lockstep kernels equals its plain version, outputs
-    and whole state, read by read; the capped sets reach their codes. The
-    NW's and add's edge cases (``chip_smoke.lockstep_edge_sets``): read
-    lengths at the edges of a lane's columns, the widest plan, predecessors
-    at the shared ring's last distance and past it, at D and past it,
-    lists filled to their caps and past them, lists past 32 slots at other
-    caps, an empty later read and weights 0-9; each must reach what its
-    set names."""
+    """Each lockstep kernel (the NW, the single-phase traceback, add and
+    topsort, the consensus) equals its plain version, outputs and whole
+    state, read by read, and the fused read_lockstep equals the plain
+    traceback, add and topsort; the capped sets reach their codes. The
+    warp layouts' edge cases (``chip_smoke.lockstep_edge_sets``): read
+    lengths at the edges of a lane's columns, the widest plan,
+    predecessors at the shared ring's last distance and past it, at D and
+    past it, lists filled to their caps and past them, lists past 32 slots
+    at other caps, an empty later read and weights 0-9, walks whose
+    speculation misses at once and never misses, a short K (walks past K,
+    statuses 3 and 100), more windows than one wave; each must reach what
+    its set names."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card and nvcc")
     import chip_smoke
@@ -309,16 +321,19 @@ def _covid_like(B):
 
 @pytest.mark.cuda
 def test_poa_batch_on_gpu_takes_the_lockstep_tier():
-    """PoaBatch(device="cuda") on 64 windows or more runs all five lockstep
-    kernels and calls no plain version; under 64 windows only the
-    per-window kernel runs. Both equal the per-window kernel's path."""
+    """PoaBatch(device="cuda") on 64 windows or more runs the lockstep tier,
+    each read one NW and one fused read_lockstep launch (the single-phase
+    traceback, add and topsort none), then the consensus, and calls no
+    plain version; under 64 windows only the per-window kernel runs. Both
+    equal the per-window kernel's path."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card and nvcc")
     from genomeworks_tpu_torch.ops import poa_lockstep_cuda as lk
     from genomeworks_tpu_torch.poa import BatchConfig, PoaBatch, lockstep, lockstep_plain as lp
 
     plains = (torch_poa.poa_consensus_plain, lp.nw_lockstep_plain, lp.tb_lockstep_plain,
-              lp.add_lockstep_plain, lp.topsort_lockstep_plain, lp.consensus_lockstep_plain)
+              lp.add_lockstep_plain, lp.topsort_lockstep_plain, lp.consensus_lockstep_plain,
+              lp.read_lockstep_plain)
     for B in (64, 63):
         windows = _covid_like(B)
         for k in (poa_consensus_cuda, *lk.KERNELS):
@@ -333,7 +348,10 @@ def test_poa_batch_on_gpu_takes_the_lockstep_tier():
         torch.cuda.synchronize()
         assert [p.calls for p in plains] == calls
         if B >= 64:
-            assert all(k.launches > 0 for k in lk.KERNELS)
+            alone = (lk.tb_lockstep, lk.add_lockstep, lk.topsort_lockstep)
+            assert all(k.launches > 0 for k in lk.KERNELS if k not in alone)
+            assert sum(k.launches for k in alone) == 0
+            assert lk.read_lockstep.launches == lk.nw_lockstep.launches
             assert lockstep.tier_stats["lockstep_windows"] > 0
         else:
             assert sum(k.launches for k in lk.KERNELS) == 0 and poa_consensus_cuda.launches > 0

@@ -127,12 +127,15 @@ def _mine(st_jax, E=lockstep_plain.E_LK):
     return torch_poa.state_from_numpy(st)
 
 
-def _run_phases(windows, weights, D, N):
+def _run_phases(windows, weights, D, N, fused=False):
     """Each read of ``windows`` through the port's plain phases and the XLA
     phases, both fed the same XLA graph state. The XLA state's lists are one
     slot wider (E = 8, A = 8), so that its list-overflow test (a list that
     reaches E) fires where the lockstep cap does (a list that would exceed
-    7). Returns the errors seen: {xla code: {port codes}}."""
+    7). With ``fused``, ``read_lockstep`` also runs on the state the port's
+    NW left, and must leave the state the XLA add and topsort leave after
+    the same traceback, with the same klen. Returns the errors seen: {xla
+    code: {port codes}}."""
     seqs, wts, lens, nseqs, L = _pack(windows, weights)
     B, S = lens.shape
     Lp = 8 * ((L + 1 + 7) // 8)
@@ -159,6 +162,12 @@ def _run_phases(windows, weights, D, N):
         act = t(active)
         best_i = lk.nw_lockstep(mine, t(seqs[:, s].copy()), t(lens[:, s].copy()), act, codes, D,
                                 gap, mismatch, match)
+        if fused:  # on the state the NW left
+            fused_st = {k: v.clone() for k, v in mine.items()}
+            w = None if weights is None else t(wts[:, s].copy())
+            klen_f = lk.read_lockstep(fused_st, codes, best_i, t(lens[:, s].copy()),
+                                      t(seqs[:, s].copy()), w, act, K)
+            np.testing.assert_array_equal(klen_f.numpy(), k, err_msg=f"fused klen s={s}")
         ag2, ar2, klen = lk.tb_lockstep(mine, codes, best_i, t(lens[:, s].copy()), act, K)
         err = mine["error"].numpy()
         np.testing.assert_array_equal(err == 5, far, err_msg=f"far s={s}")
@@ -199,6 +208,15 @@ def _run_phases(windows, weights, D, N):
             sel = ok[:, None] & inside if a.ndim == 2 else ok
             np.testing.assert_array_equal(a[sel], b[sel], err_msg=f"topsort {key} s={s}")
         assert (mine["sorted"].numpy()[ok[:, None] & ~inside] == -7).all()
+        if fused:  # the fused read against the XLA add + topsort
+            f_err = fused_st["error"].numpy()
+            for b in np.flatnonzero(active):
+                seen.setdefault(("fused", int(x_err[b])), set()).add(int(f_err[b]))
+            np.testing.assert_array_equal(f_err[ok], 0)
+            for key in torch_poa.STATE_KEYS:
+                a, b = fused_st[key].numpy(), ref[key].numpy()
+                sel = ok[:, None] & inside if key in ("sorted", "pos_of") else ok
+                np.testing.assert_array_equal(a[sel], b[sel], err_msg=f"fused {key} s={s}")
     # consensus against consensus_batched
     act = live
     out = lk.consensus_lockstep(_mine(st), torch.from_numpy(act))
@@ -230,6 +248,29 @@ def test_phases_match_xla(case):
     seen = _run_phases(windows, weights, D=3, N=128)
     assert seen["far"] == {5}, "the set must reach a predecessor beyond D"
     assert set(seen) == {0, "far"} and seen[0] == {0}
+
+
+@pytest.mark.parametrize("case", ["unit", "weighted", "capped"])
+def test_read_lockstep_matches_xla_add_and_topsort(case):
+    """read_lockstep (the fused traceback, add and topsort the main path
+    launches a read) on the CPU, from the state the port's NW left, equals
+    the XLA add_alignment_batched_seq + topsort_batched after the same
+    traceback (nw_batched_fast's), state and klen, on the cases of
+    test_phases_match_xla; where the XLA add errs, the fused read reports
+    the port's codes as the add alone does."""
+    if case == "capped":
+        windows, _ = _windows(8, 16, 30, seed=5, sub=0.2, indel=0.2)
+        seen = _run_phases(windows, None, D=16, N=192, fused=True)
+        assert 6 in seen[("fused", 2)] and seen[("fused", 2)] <= {6, 1}
+        assert seen[("fused", 0)] == {0}
+        return
+    windows, rng = _windows(12, 6, 40, seed=2)
+    for b in range(0, 12, 3):
+        windows[b] = windows[b][:2 + b % 4]
+    weights = [[rng.integers(1, 5, size=len(s)).astype(np.int32) for s in w]
+               for w in windows] if case == "weighted" else None
+    seen = _run_phases(windows, weights, D=3, N=128, fused=True)
+    assert seen["far"] == {5} and seen[("fused", 0)] == {0}
 
 
 # -- end to end -----------------------------------------------------------------
@@ -281,10 +322,15 @@ def test_wrappers_on_cpu_run_the_plain_phases():
                                lockstep_plain.tb_lockstep_plain,
                                lockstep_plain.add_lockstep_plain,
                                lockstep_plain.topsort_lockstep_plain,
-                               lockstep_plain.consensus_lockstep_plain)]
+                               lockstep_plain.consensus_lockstep_plain,
+                               lockstep_plain.read_lockstep_plain)]
     launches = [k.launches for k in lk.KERNELS]
     assert lockstep.poa_batch_consensus_lockstep(windows, device="cpu")[2] == [0] * 4
     assert lockstep_plain.nw_lockstep_plain.calls == calls[0] + 2
+    # each read's traceback, add and topsort: read_lockstep, the plain composition
+    assert lockstep_plain.read_lockstep_plain.calls == calls[5] + 2
+    assert [f.calls for f in (lockstep_plain.tb_lockstep_plain, lockstep_plain.add_lockstep_plain,
+                              lockstep_plain.topsort_lockstep_plain)] == [c + 2 for c in calls[1:4]]
     assert lockstep_plain.consensus_lockstep_plain.calls == calls[4] + 1
     assert [k.launches for k in lk.KERNELS] == launches
 
@@ -303,6 +349,13 @@ def test_wrappers_on_cpu_run_the_plain_phases():
         lk.topsort_lockstep(bad, act)
     with pytest.raises(ValueError):
         lk.tb_lockstep(st, codes, rl[:3], rl, act, 100)
+    with pytest.raises(ValueError):
+        lk.read_lockstep(st, codes, rl, rl, read, None, act, 0)
+    with pytest.raises(TypeError):
+        lk.read_lockstep(st, codes, rl, rl, read.to(torch.int32), None, act, 100)
+    with pytest.raises(ValueError):
+        lk.read_lockstep(st, codes, rl, rl, read, torch.ones((4, 29), dtype=torch.int32), act,
+                         100)
     with pytest.raises(ValueError, match="non-empty first read"):
         lockstep.poa_batch_consensus_lockstep([["", "ACGT"]], device="cpu")
 
