@@ -47,8 +47,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
    them, an empty later read, weights 0-9; walks whose speculation misses
    at once and never misses; a short K, whose walks end past K or fail
    (status 3) and whose graphs then get a cycle (100); a bucket larger
-   than the windows the fused kernel holds at once), each of which must
-   reach the statuses, distances, full lists and facts it names.
+   than the windows the fused kernel holds at once; the consensus's ties on
+   weight and on the sources' scores, in-lists past 32, branch completion
+   over several loops and its status 3, replayed on the host by
+   ``consensus_facts``), each of which must reach the statuses, distances,
+   full lists and facts it names.
 3. POA main paths, each with every count set to 0 just before and read just
    after: (a) the default path, all covid windows through
    ``get_multi_batch_sizes`` and ``PoaBatch(device="cuda")``, which takes
@@ -83,8 +86,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    ``read_lockstep`` (the main path's) and once with the single-phase
    traceback, add and topsort, and device time by kernel under
    ``torch.profiler`` for both, with the work the run's data needs for the
-   bound; the windows the fused kernel holds on the card at once and the
-   waves each covid bucket takes; the plain versions against the kernels
+   bound; the windows the fused kernel and the consensus (a warp per
+   window) hold on the card at once and the waves each covid bucket takes;
+   the plain versions against the kernels
    on the bucket's first 256 windows at read 1 (consensus after the whole
    build).
 9. the banded and MSA modes of the per-window kernel (slice 4: the static-
@@ -93,8 +97,13 @@ Phases, each of which fails the run (nonzero exit, no result line):
    (a) each instantiation (on the card) against its plain version (on the
    host CPU, same inputs), bit for bit: seeded random windows (weights unit, non-unit and negative, an
    empty later read, a read that leaves the band, adaptive rules 1-2, a
-   deep racon DFS, per-window node caps, E = A = 4), statuses 0-3; and
-   covid windows 0-31 (0-7 for the banded MSA and graph modes), which time
+   deep racon DFS, per-window node caps, E = A = 4), statuses 0-3; the
+   edge sets of the banded warp layout (``band_edge_sets``, at their own
+   band widths: a lane's last chunk alone, partial and whole tiles, guards
+   failing on a predecessor with another band start, rules 7 and 8 and
+   the re-run, adaptive bands up to 1536, caps too small, an empty later
+   read), each of which must reach what it names (``band_facts``, from the
+   plain chain's counts); and covid windows 0-31 (0-7 for the banded MSA and graph modes), which time
    each instantiation (alone on the card) and its plain version (the plain
    versions run first, on the host CPU in one worker process per core, on
    the same inputs);
@@ -102,7 +111,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
    through ``PoaBatch(device="cuda")`` with consensus and MSA output in
    static and adaptive band 256 (every status success, every MSA row its
    read without gaps, no plain version and no host chain called; how many
-   consensuses equal the full-band golden is printed, not gated); in full
+   consensuses equal the full-band golden is printed, not gated), then
+   under ``torch.profiler``: each banded instantiation's device ms over the
+   whole file, its launches and a lower bound of its work, the device's
+   busy share of the wall, and per covid bin the windows a launch and in
+   flight and the shared-memory paths; in full
    band (every consensus equal to the golden, every MSA row its read); and
    ``get_graphs`` on 256 covid windows;
    (e) 256 windows of 2000 bp x 8 reads (3 % substitutions, 3 % indels)
@@ -764,13 +777,21 @@ LK_MAIN_READS = 45
 # node's rank, in-count, score and writes score and predecessor (16), per
 # in-edge the source, weight and score (12), per emitted base its node,
 # coverage and counts and writes base and coverage (13). Each step or edge
-# costs about 12 int32 operations; the NW counts as nw_ops. The fused read
+# costs about 12 int32 operations; the NW counts as nw_ops. The consensus
+# keeps its scores and predecessors in shared memory: of a node it reads its
+# rank and in-count from device memory (8), of an in-edge the source and
+# weight (8), and its emission moves EMIT_BYTES a base. The fused read
 # hands the moves from its traceback to its add in shared memory, so a walk
 # step of it moves the two phases' bytes less the ag/ar writes of the one
 # and the ag/ar reads of the other (MOVE_BYTES each): 25 - 8 + 40 - 8 = 49.
 TB_STEP_BYTES, ADD_STEP_BYTES, MOVE_BYTES = 25, 40, 8
 NODE_BYTES, EDGE_BYTES, EMIT_BYTES = 16, 12, 13
+CONS_NODE_BYTES, CONS_EDGE_BYTES = 8, 8
 WALK_OPS = 12
+#: the one-thread-per-window consensus's time a launch at the largest covid
+#: bucket (profiler), ms, an H100 80GB HBM3 at 700 W, before the warp per
+#: window
+EARLIER_CONSENSUS_MS = 0.8646
 
 
 def lockstep_modules():
@@ -856,6 +877,63 @@ def tb_spec_facts(state, codes, best_i, read_len, act):
             facts.add("tb misses at once")
         if len(misses) >= 32 and not any(misses):
             facts.add("tb never misses")
+    return facts
+
+
+def consensus_facts(state, act, err):
+    """What the heaviest-path consensus meets on the graphs of ``state``
+    for the windows in ``act`` without an error, replayed on the host
+    (consensus_row's scan and the branch completion, as the plain version
+    runs them) with ``err``, the consensus's codes: "a tie on weight" where
+    a row's heaviest in-edge weight is on two or more counted edges, "a tie
+    on weight and score" where two of those have sources of the same
+    score, "an in-list past 32", "branch completion over several loops",
+    "consensus status 3"."""
+    st = {k: v.cpu().numpy() for k, v in state.items()}
+    err = err.cpu().numpy()
+    facts = set()
+    for b in np.flatnonzero(act.cpu().numpy() & (st["error"] == 0)):
+        if err[b] == 3:
+            facts.add("consensus status 3")
+        nc = int(st["node_count"][b])
+        ic, ie, iw = st["in_count"][b], st["in_edges"][b], st["in_w"][b]
+        srt, pos, oc, oe = st["sorted"][b], st["pos_of"][b], st["out_count"][b], st["out_edges"][b]
+        if (ic[:nc] > 32).any():
+            facts.add("an in-list past 32")
+        cs = np.full(nc, -1, np.int64)
+
+        def run(start, skip):
+            best, at = (0, 0) if skip else (-1, 0)
+            for g in range(start, nc):
+                nid = srt[g]
+                s, p, sp = (-1 if skip else cs[nid]), -1, 0
+                edges = [(int(ie[nid, e]), int(iw[nid, e])) for e in range(ic[nid])
+                         if not (skip and cs[ie[nid, e]] == -1)]
+                if len(edges) > 1:
+                    m = max(w for _, w in edges)
+                    tied = [cs[x] for x, w in edges if w == m]
+                    if len(tied) > 1:
+                        facts.add("a tie on weight")
+                        if tied.count(max(tied)) > 1:
+                            facts.add("a tie on weight and score")
+                for x, w in edges:
+                    if s < w or (s == w and p != -1 and sp <= cs[x]):
+                        s, p, sp = w, x, cs[x]
+                cs[nid] = s + sp if p != -1 else s
+                if best <= cs[nid]:
+                    best, at = cs[nid], nid
+            return at
+
+        max_id, loops = run(0, False), 0
+        while oc[max_id] != 0 and loops < nc:
+            for o in oe[max_id, :oc[max_id]]:
+                for x in ie[o, :ic[o]]:
+                    if x != max_id:
+                        cs[x] = -1
+            max_id = run(pos[max_id] + 1, True)
+            loops += 1
+        if loops > 1:
+            facts.add("branch completion over several loops")
     return facts
 
 
@@ -960,11 +1038,39 @@ def lockstep_edge_sets(rng):
     sets["waves"] = ("2000 windows at N = 640, more than one wave", many, None,
                      {"plan": (640, 128, 64, lockstep.walk_len(640, 60))},
                      {"status 0", "more than one wave"})
+    # the consensus: reads that differ in one base between equal halves
+    # (ties on weight and on the sources' scores), an in-list of 41 (41
+    # reads each inserting a base before one base, at E = 48), noisy reads
+    # with weights 0-9, weights that fall in steps along a read, and weights
+    # of +5 on a read's first half and -5 on its second (the heaviest score
+    # ends mid-graph and no later row reaches 0: branch completion loops
+    # until its cap, status 3)
+    ties = []
+    for k in range(4):
+        x, y = rand(30), rand(30)
+        ties.append([x + "A" + y, x + "C" + y] + ([x + "G" + y] if k % 2 else []))
+    t = rand(60)
+    fan = [[t] + [t[:30] + chr(100 + i) + t[30:] for i in range(40)]]
+    noisy = random_windows(rng, 24, (40, 80), 0.1, 0.1, reads=(4, 8))
+    steps = random_windows(rng, 8, (60, 80), 0.03, 0.03, reads=(3, 5))
+    halves = random_windows(rng, 2, (40, 60), 0.05, 0.05, reads=(3, 3))
+    wts = [[np.ones(len(x), np.int32) for x in w] for w in ties + fan]
+    wts += [[rng.integers(0, 10, len(x)).astype(np.int32) for x in w] for w in noisy]
+    wts += [[np.array([9 - 10 * i // len(x) for i in range(len(x))], np.int32) for x in w]
+            for w in steps]
+    wts += [[np.where(np.arange(len(x)) < len(x) // 2, 5, -5).astype(np.int32) for x in w]
+            for w in halves]
+    sets["consensus"] = ("the consensus's ties, long in-lists, branch completion, status 3",
+                         ties + fan + noisy + steps + halves, wts,
+                         {"caps": (48, 40), "consensus": True},
+                         {"status 0", "consensus status 3", "a tie on weight",
+                          "a tie on weight and score", "an in-list past 32",
+                          "branch completion over several loops"})
     return sets
 
 
 def lockstep_compare(name, windows, weights, dev, max_nodes=None, D=None, reads=None, plan=None,
-                     seen=None, caps=None, spec=False):
+                     seen=None, caps=None, spec=False, consensus=False):
     """The chain of one bucket, read by read: each phase's kernel and plain
     version on clones of one state must give equal outputs and equal whole
     states (codes prefilled alike, so every byte compares), and the fused
@@ -976,8 +1082,8 @@ def lockstep_compare(name, windows, weights, dev, max_nodes=None, D=None, reads=
     without an error with a full in-edge, out-edge or clique list, "N = n"
     for the plan's N, "klen past K" where a walk ended after more than K
     moves, "more than one wave" where the bucket has more windows than the
-    fused kernel holds on the card at once, and with ``spec`` the facts of
-    ``tb_spec_facts``. ``plan`` (N, D, Lp, K) replaces the bucket's own,
+    fused kernel holds on the card at once, with ``spec`` the facts of
+    ``tb_spec_facts`` and with ``consensus`` those of ``consensus_facts``. ``plan`` (N, D, Lp, K) replaces the bucket's own,
     ``caps`` (E, A) the lockstep tier's."""
     lockstep, kernels, plains = lockstep_modules()
     N, D0, Lp, K = plan or lockstep.bucket_plan(windows, max_nodes)
@@ -1034,6 +1140,8 @@ def lockstep_compare(name, windows, weights, dev, max_nodes=None, D=None, reads=
     out = kernels["consensus_lockstep"](state, act)
     compare(f"consensus_lockstep on {name}", out, plains["consensus_lockstep"](state, act))
     statuses = sorted(set(out[3].tolist()))
+    if seen is not None and consensus:
+        seen |= consensus_facts(state, act, out[3])
     if seen is not None:
         ok = state["error"] == 0
         E, A = state["in_edges"].shape[2], state["al"].shape[2]
@@ -1156,8 +1264,8 @@ def lockstep_bounds(c):
         "add_lockstep": (ADD_STEP_BYTES * c["walk_steps"], WALK_OPS * c["walk_steps"]),
         "topsort_lockstep": (NODE_BYTES * c["sort_nodes"] + EDGE_BYTES * c["sort_out_edges"],
                              WALK_OPS * (c["sort_nodes"] + c["sort_out_edges"])),
-        "consensus_lockstep": (NODE_BYTES * c["cons_nodes"] + EDGE_BYTES * c["cons_in_edges"]
-                               + EMIT_BYTES * c["emitted"],
+        "consensus_lockstep": (CONS_NODE_BYTES * c["cons_nodes"]
+                               + CONS_EDGE_BYTES * c["cons_in_edges"] + EMIT_BYTES * c["emitted"],
                                WALK_OPS * (c["cons_nodes"] + c["cons_in_edges"])),
     }
     b["read_lockstep"] = (
@@ -1181,9 +1289,11 @@ def lockstep_timing(covid, dev):
 
     for ws, (N, D, Lp, K), cfg in covid_buckets(covid):
         fly = lk.read_windows_in_flight(lk.PH_ALL, N, lk.plain.E_LK, K)
+        cfly = lk.consensus_windows_in_flight(N)
         print(f"lk_read_kernel<7> on the covid bucket of bin {cfg.max_sequence_size}, {len(ws)} "
               f"windows, N={N} K={K}: {fly} windows in flight on the card, so "
-              f"{-(-len(ws) // fly)} wave(s)")
+              f"{-(-len(ws) // fly)} wave(s); lk_consensus_kernel {cfly}, so "
+              f"{-(-len(ws) // cfly)} wave(s)")
     windows, plan, cfg = largest_covid_bucket(covid)
     N, D, Lp, K = plan
     ones = [[np.ones(len(s), np.int32) for s in w] for w in windows]
@@ -1259,8 +1369,10 @@ def lockstep_timing(covid, dev):
         t_ops = ops / SCALAR_OPS_PER_S * 1e3 / n
         ms = (dev_ms[name] or ev_ms[name]) / n
         print(f"{name} ({LK_DEVICE_NAME[name]}): {n} launches on the bucket; device "
-              f"{dev_ms[name]:.3f} ms, events {ev_ms[name]:.3f} ms in all, {ms:.4f} ms a launch; "
-              f"bound {nbytes_} bytes -> {t_bytes * n:.6f} ms, {ops} int32 ops -> "
+              f"{dev_ms[name]:.3f} ms, events {ev_ms[name]:.3f} ms in all, {ms:.4f} ms a launch"
+              + (f" (one thread per window: {EARLIER_CONSENSUS_MS:.4f} ms)"
+                 if name == "consensus_lockstep" else "")
+              + f"; bound {nbytes_} bytes -> {t_bytes * n:.6f} ms, {ops} int32 ops -> "
               f"{t_ops * n:.6f} ms in all")
         fields[name] = {
             "ms": ms, "plain_ms": plain_ms[name], "bound_ms": max(t_bytes, t_ops),
@@ -1276,11 +1388,15 @@ def lockstep_timing(covid, dev):
 # -- slice 4: the banded and MSA modes of the per-window kernel ------------------
 
 MODE_REPLACES = "genomeworks_tpu/ops/poa_pallas.py:1895"
-#: each instantiation's earlier time on the same covid windows (the banded
-#: ones unchanged since; full band a block per window then), ms, an H100
-#: 80GB HBM3 at 700 W
-EARLIER_MODE_MS = {"static": 10.879, "adaptive": 11.234, "static_msa": 12.090,
-                   "adaptive_msa": 11.827, "full_msa": 17.160, "full_graph": 16.450}
+#: each instantiation's earlier time on the same covid windows, ms, an H100
+#: 80GB HBM3 at 700 W: the banded ones the block-per-window kernel's (its
+#: last run, before the warp per window), the full band's a block per
+#: window too (before its warp per window)
+EARLIER_MODE_MS = {"static": 11.150, "adaptive": 11.564, "static_msa": 12.371,
+                   "adaptive_msa": 12.107, "full_msa": 17.160, "full_graph": 16.450}
+#: the banded kernel's geometry (csrc/poa_consensus.cu): band lanes a lane
+#: holds (two chunks of CELLS_PER_THREAD) and a tile's
+BAND_CPL, BAND_TILE = 8, 256
 # the instantiations of csrc/poa_consensus.cu this slice adds, by the name
 # ops/poa_cuda.instance_name gives them
 MODES = {
@@ -1349,6 +1465,75 @@ def mode_sets(rng):
             ("random small E/A", edge, None, [3 * max(len(s) for s in w) for w in edge], 4)]
 
 
+def band_edge_sets(rng):
+    """The banded warp layout's edge cases, for phase 9a, the card tests and
+    the CPU test against the JAX host chain: {key: (label, windows, weights,
+    node caps (None: 3 x each window's longest read), band width, kinds
+    ("static", "adaptive" or both), what the plain chain must meet: the
+    marks of ``band_facts``)}. The give-up at 1536 is not among them: the
+    chain cannot reach it (a first pass at 1536 skips rules 7-8, so there is
+    no re-run; a re-run's rules 1-3 give its first pass's band)."""
+
+    def rand(n):
+        return "".join("ACGT"[i] for i in rng.integers(0, 4, n))
+
+    sets = {}
+    # reads longer than the band, so that band starts move from row to row
+    # and a chunk past its predecessor's band fails its guard: bands of 252
+    # (a lane's last chunk alone), 260 (a second tile of one chunk) and 512
+    # (two whole tiles)
+    ws = random_windows(rng, 4, (380, 420), 0.04, 0.04, reads=(3, 4))
+    sets["lane-edge"] = ("static band 252", ws, None, None, 252, ("static",),
+                         {"a lane's last chunk alone", "a guard fails on another start"})
+    sets["tile-edge"] = ("static band 260", ws, None, None, 260, ("static",),
+                         {"a lane's last chunk alone", "a partial tile",
+                          "a guard fails on another start"})
+    sets["two-tiles"] = ("static band 512", ws, None, None, 512, ("static",),
+                         {"whole tiles", "several tiles"})
+    # 10 bases in, 120 or 150 deleted (the walk meets the band's left edge:
+    # rule 7) or inserted (its right edge: rule 8), then the re-run
+    shift = []
+    for k in (120, 150):
+        t = rand(300)
+        shift += [[t, t[:10] + t[10 + k:]], [t, t[:10] + rand(k) + t[10:], t]]
+    sets["shift"] = ("reads that leave an adaptive band of 128", shift, None, None, 128,
+                     ("adaptive",), {"rule 7", "rule 8", "a re-run"})
+    # adaptive rules 1-2: reads far longer than the graph (500 bases against
+    # 10: band 1536, six tiles; 300 against 20: 384), one far shorter
+    t = rand(500)
+    wide = [[t[:10], t], [t[:20], t[:300]], [t[:60], t[:400], t[:300]], [t, t[:60]]]
+    sets["wide"] = ("adaptive bands of several tiles", wide, None, None, 256, ("adaptive",),
+                    {"band 1536", "a partial tile", "several tiles"})
+    # a first read past its cap and reads that overflow theirs (status 1),
+    # an empty later read
+    t = rand(120)
+    capped = [[t, t], [t[:40], t[:20] + "N" * 30 + t[20:40]], [t, "", t[:100]], [t[:80]] * 3]
+    sets["caps"] = ("caps too small, an empty later read", capped, None, [100, 60, 360, 240],
+                    256, ("static", "adaptive"), {"status 1", "an empty later read"})
+    return sets
+
+
+def band_facts(work, statuses, windows):
+    """What a banded chain met, as marks, from the plain chain's ``work``
+    (``banded_plain.nw_banded``), its statuses and its windows."""
+    bws = work.get("band_widths", set())
+    marks = {f"status {s}" for s in statuses}
+    for mark, hit in (
+            ("a lane's last chunk alone", any(b % BAND_CPL for b in bws)),
+            ("a partial tile", any(b > BAND_TILE and b % BAND_TILE for b in bws)),
+            ("whole tiles", any(b > BAND_TILE and not b % BAND_TILE for b in bws)),
+            ("several tiles", any(b > BAND_TILE for b in bws)),
+            ("band 1536", 1536 in bws),
+            ("a guard fails on another start", work.get("guard_other_start", 0) > 0),
+            ("rule 7", work.get("shift_left", 0) > 0),
+            ("rule 8", work.get("shift_right", 0) > 0),
+            ("a re-run", work.get("shift_left", 0) + work.get("shift_right", 0) > 0),
+            ("an empty later read", any(not r for w in windows for r in w[1:]))):
+        if hit:
+            marks.add(mark)
+    return marks
+
+
 def bin_nodes(window):
     """max_nodes_per_graph of the bin get_multi_batch_sizes puts a window in."""
     from genomeworks_tpu_torch.poa import get_multi_batch_sizes
@@ -1356,8 +1541,9 @@ def bin_nodes(window):
     return get_multi_batch_sizes([window])[0][0].max_nodes_per_graph
 
 
-def mode_args(ws, wt, caps, E, mode, dev):
-    """Packed CUDA tensors and keywords of one instantiation's wrapper."""
+def mode_args(ws, wt, caps, E, mode, dev, band_width=None):
+    """Packed CUDA tensors and keywords of one instantiation's wrapper
+    (``band_width`` in place of the mode's)."""
     from genomeworks_tpu_torch.ops import poa_cuda
     from genomeworks_tpu_torch.poa.torch_poa import pack_windows
 
@@ -1367,7 +1553,7 @@ def mode_args(ws, wt, caps, E, mode, dev):
     args = [torch.from_numpy(a).to(dev) for a in (seqs, wts, lens, nseqs)]
     kw = dict(N=N, E=E, A=E, gap=-8, mismatch=-6, match=8)
     if m["band_width"]:
-        kw.update(band_width=m["band_width"], adaptive=m["adaptive"],
+        kw.update(band_width=band_width or m["band_width"], adaptive=m["adaptive"],
                   caps=torch.tensor(caps, dtype=torch.int32, device=dev))
     fn = {"consensus": poa_cuda.poa_consensus_cuda, "msa": poa_cuda.poa_msa_cuda,
           "graph": poa_cuda.poa_graph_cuda}[m["output"]]
@@ -1383,7 +1569,7 @@ def mode_plain(mode, args, kw, work=None):
     if m["band_width"]:
         fn = banded_plain.poa_banded_plain if m["output"] == "consensus" else \
             banded_plain.poa_msa_banded_plain
-        return fn(*args, kw["caps"], *base[1:], m["band_width"], m["adaptive"], work=work)
+        return fn(*args, kw["caps"], *base[1:], kw["band_width"], m["adaptive"], work=work)
     fn = torch_poa.poa_msa_plain if m["output"] == "msa" else torch_poa.poa_graph_plain
     return fn(*args, *base, work=work)
 
@@ -1392,8 +1578,8 @@ def plain_job(job):
     """One instantiation's plain version on the host's CPU, one thread, in a
     worker process: (key, its outputs, its ms, the NW work it counted)."""
     torch.set_num_threads(1)
-    key, mode, ws, wt, caps, E = job
-    fn, args, kw = mode_args(ws, wt, caps, E, mode, torch.device("cpu"))
+    key, mode, ws, wt, caps, E, *bw = job
+    fn, args, kw = mode_args(ws, wt, caps, E, mode, torch.device("cpu"), *bw)
     work: dict = {}
     t0 = time.perf_counter()
     out = mode_plain(mode, args, kw, work)
@@ -1446,6 +1632,12 @@ def slice4_phases(dev, covid, golden, n_long=256):
             sub = [ws[i] for i in wids]
             jobs.append(((mode, f"covid 0-{n - 1} bin {cfg.max_sequence_size}"), mode, sub, None,
                          [cfg.max_nodes_per_graph] * len(sub), 50))
+    # the warp layout's edge sets, at their own band widths
+    band_sets = band_edge_sets(np.random.default_rng(2028))
+    for key, (label, ws, wt, caps, bw, kinds, want) in band_sets.items():
+        caps = caps or [3 * max(len(s) for s in w) for w in ws]
+        for mode in (m for kind in kinds for m in (kind, f"{kind}_msa")):
+            jobs.append(((mode, label), mode, ws, wt, caps, 50, bw))
     jobs.sort(key=lambda j: not j[0][1].startswith("covid"))  # the long ones first
     t0 = time.perf_counter()
     with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
@@ -1456,8 +1648,9 @@ def slice4_phases(dev, covid, golden, n_long=256):
     err = dict.fromkeys(MODES, 0)
     statuses = set()
     timed = {m: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0} for m in MODES}
-    for key, mode, ws, wt, c, E in jobs:
-        fn, args, kw = mode_args(ws, wt, c, E, mode, dev)
+    reached = {v[0]: set() for v in band_sets.values()}
+    for key, mode, ws, wt, c, E, *bw in jobs:
+        fn, args, kw = mode_args(ws, wt, c, E, mode, dev, *bw)
         k_out = fn(*args, **kw)
         p_out, p_ms, work = plain_out[key]
         err[mode] = max(err[mode], compare(f"{mode} on {key[1]}", k_out,
@@ -1466,6 +1659,8 @@ def slice4_phases(dev, covid, golden, n_long=256):
         statuses.update(st)
         line = (f"check {mode} on {key[1]}: {len(ws)} windows, N={kw['N']} E={E}: kernel == "
                 f"plain (statuses {st})")
+        if key[1] in reached:
+            reached[key[1]] |= band_facts(work, st, ws)
         if key[1].startswith("covid"):
             m = MODES[mode]
             k_ms, _ = cuda_ms(lambda: poa_cuda._launch(
@@ -1481,6 +1676,10 @@ def slice4_phases(dev, covid, golden, n_long=256):
         print(line, flush=True)
     if not {0, 1, 2, 3} <= statuses:
         fail(f"the slice-4 check sets did not reach statuses 0-3 (got {sorted(statuses)})")
+    for key, (label, *_, want) in band_sets.items():
+        if not want <= reached[label]:
+            fail(f"the banded edge set {key!r} did not reach {sorted(want - reached[label])}")
+        print(f"banded edge set {key!r} ({label}) reaches {sorted(reached[label])}")
     for mode, tm in timed.items():
         print(f"{mode}: kernel {tm['ms']:.3f} ms on covid 0-{cut[mode] - 1} (earlier "
               f"{EARLIER_MODE_MS[mode]:.3f} ms)")
@@ -1532,7 +1731,7 @@ def slice4_phases(dev, covid, golden, n_long=256):
         return [res[i] for i in range(len(windows))], res.get("graph_status", [])
 
     both = OutputType.consensus | OutputType.msa
-    results, walls, launches = {}, {}, {}
+    results, walls, launches, covid_dev = {}, {}, {}, {}
     for mode, bm in (("static", BandMode.static_band), ("adaptive", BandMode.adaptive_band)):
         run_batches(covid[:256], bm, both)  # warm
         (out, _), wall, lc, pc, hc = counted(lambda: run_batches(covid, bm, both))
@@ -1553,6 +1752,43 @@ def slice4_phases(dev, covid, golden, n_long=256):
               f"{len(covid) / wall:.1f} windows/s; launches {lc}; {pc} plain-version calls, "
               f"{hc} host-chain windows; every MSA row is its read without gaps; "
               f"{same} of {len(covid)} consensuses equal the full-band golden", flush=True)
+        # the same path under torch.profiler: each instantiation's device ms
+        # over the whole file, against a lower bound of its work: every read
+        # after the first aligns to a graph of at least the first read's
+        # nodes over a band of at least 256 lanes, 7 int32 ops a cell
+        # (nw_ops with one predecessor), and reads its bases and weights
+        busy, prof_wall, by_name = profiled(lambda: run_batches(covid, bm, both))
+        cfgs, groups = get_multi_batch_sizes(covid, band_width=256, band_mode=bm)
+        for cfg, wids in zip(cfgs, groups):
+            N, L = cfg.max_nodes_per_graph, max(len(r) for i in wids for r in covid[i])
+            S = max(len(covid[i]) for i in wids)
+            for out in (0, 1):
+                slab = lib.poa_mode_slab_bytes(1 + (mode == "adaptive"), out, N, L, 50, 50, S,
+                                               poa_cuda.band_alloc(256, mode == "adaptive"))
+                print(f"{mode} band, {'MSA' if out else 'consensus'}, covid bin "
+                      f"{cfg.max_sequence_size}: {len(wids)} windows, N={N} L={L}, "
+                      f"{slab} scratch bytes a window, "
+                      f"{poa_cuda.chunk_windows(len(wids), slab, dev)} windows a launch, "
+                      f"{lib.poa_banded_windows_in_flight(1 + (mode == 'adaptive'), out, L)} "
+                      f"in flight on the card; window_paths {lib.poa_banded_paths(N, N)} at "
+                      f"nc = N")
+        cells = sum(len(w[0]) * 256 * (len(w) - 1) for w in covid)
+        in_bytes = sum(5 * len(r) for w in covid for r in w)
+        for out in (0, 1):
+            name = mode if out == 0 else f"{mode}_msa"
+            band = 1 if mode == "static" else 2
+            ms = sum(v for k, v in by_name.items() if f"poa_banded_kernel<{band}, {out}>" in k)
+            bound = max(7 * cells / SCALAR_OPS_PER_S, in_bytes / HBM_BYTES_PER_S) * 1e3
+            covid_dev[name] = (ms, lc[name], bound)
+            print(f"profiled {mode}-band main path: poa_banded_kernel<{band}, {out}> {ms:.3f} "
+                  f"device ms over the whole covid file in {lc[name]} launches "
+                  f"({ms / max(lc[name], 1):.3f} ms a launch); bound at least {bound:.6f} ms "
+                  f"({7 * cells} int32 ops over {cells} cells, {in_bytes} input bytes)")
+        print(f"profiled {mode}-band main path: {prof_wall * 1e3:.3f} ms wall under "
+              f"torch.profiler, device busy {busy:.3f} ms ({100 * busy / (prof_wall * 1e3):.2f} "
+              f"% of the wall); " + "; ".join(
+                  f"{k} {v:.3f} ms" for k, v in sorted(by_kernel(by_name).items(),
+                                                       key=lambda kv: -kv[1])[:6]), flush=True)
     (out, _), wall, lc, pc, hc = counted(lambda: run_batches(covid, BandMode.full_band, both))
     bad = [i for i, (o, g) in enumerate(zip(out, golden)) if o[0] != g or o[1] != 0 or o[3] != 0]
     if bad:
@@ -1662,6 +1898,10 @@ def slice4_phases(dev, covid, golden, n_long=256):
             "main_path_s": walls[mode],
             "windows_per_s": (256 if mode == "full_graph" else len(covid)) / walls[mode],
         })
+        if mode in covid_dev:
+            ms, n, bound = covid_dev[mode]
+            entries[-1].update(covid_device_ms=ms, covid_launches=n,
+                               covid_bound_ms_at_least=bound)
     entries[0]["long_windows_s"] = walls["long_static"]
     entries[2]["long_windows_s"] = walls["long_adaptive"]
     return entries

@@ -1,4 +1,4 @@
-"""Old against new for the lockstep traceback, add and topsort on one card.
+"""Old against new for the lockstep kernels on one card.
 
     python3 experiments/torch_lockstep_check.py [--parent DIR] [--nw-c 2,8]
 
@@ -10,20 +10,21 @@
    memory and spills as ptxas reports them.
 2. With ``--parent DIR`` (a directory holding another checkout's
    genomeworks_tpu_torch/csrc/poa_lockstep.cu, e.g. the parent commit
-   unpacked with ``git archive``), builds that source too. A parent with
-   one-thread kernels (``lk_tb_launch``, ``lk_add_launch``,
-   ``lk_topsort_launch``) is run through those.
+   unpacked with ``git archive``), builds that source too. The parent
+   must have this checkout's C interface, or the one before it, whose
+   one-thread consensus takes a device scratch (run through its own
+   launcher).
 3. For each covid bucket (the windows PoaBatch gives the lockstep tier,
    the largest first): the windows ``lk_read_kernel<7>`` holds on the card
    at once and the waves; then the bucket's chain once per build, in turns
-   (parent, this, this, parent, then each --nw-c build): the
-   parent with its own NW, traceback, add and topsort; this build and the
-   other builds with their NW and the fused ``read_lockstep`` (the main path's),
-   and this build also with its single-phase traceback, add and topsort.
+   (parent, this, this, parent, then each --nw-c build): each build with
+   its NW and the fused ``read_lockstep`` (the main path's), and this build
+   also with its single-phase traceback, add and topsort.
    Every launch is timed with CUDA events; every run must end with the
    first run's whole state and consensus. Prints ms a launch per kernel,
    and the sum over the buckets of the traceback, add and topsort time
-   (the default covid path's, one launch of each a read).
+   (the default covid path's, one launch of each a read) and of the
+   consensus time, with the windows the consensus holds on the card.
 4. The debug build's counters over all buckets, fused: the share of
    traceback moves the speculation took without a round of their own,
    cycles a move, a window's table and jump tables, an add step and a
@@ -63,33 +64,28 @@ STATS = ("tb_windows", "tb_table_cycles", "tb_walk_cycles", "tb_steps", "tb_roun
 
 
 def build(source, defines=None):
-    """Build and bind one version of the source; prints its ptxas lines.
-    Returns (library, True for this C interface, False for the parent's
-    one-thread kernels)."""
+    """Build and bind one version of the source; prints its ptxas lines."""
     path = _build.build(source, defines)
     lib = ctypes.CDLL(path)
-    fused = hasattr(lib, "lk_read_launch")
-    if fused:
+    if hasattr(lib, "lk_consensus_windows_in_flight"):
         lk.bind(lib)
-    else:
+    else:  # the interface before: the consensus takes a scratch argument
         P, I = ctypes.c_void_p, ctypes.c_int
         st = [ctypes.POINTER(ctypes.c_void_p)] + [I] * 4
-        for name, rest in (("lk_nw_launch", [P, I, P, P, P, I, P, P, I, I, I, I, P]),
-                           ("lk_tb_launch", [P, I, P, P, P, P, P, P, I, P]),
-                           ("lk_add_launch", [P, P, P, I, P, P, I, P, P]),
-                           ("lk_topsort_launch", [P, P, P]),
-                           ("lk_consensus_launch", [P, P, P, P, P, P, P])):
-            getattr(lib, name).argtypes = st + rest
-            getattr(lib, name).restype = ctypes.c_int
-        lib.lk_nw_ring_width.argtypes = [I]
-        lib.lk_nw_ring_width.restype = I
+        for name, args in (("lk_nw_launch", st + [P, I, P, P, P, I, P, P, I, I, I, I, P]),
+                           ("lk_read_launch", st + [I, P, I, P, P, P, P, P, P, I, P, P, I, P]),
+                           ("lk_consensus_launch", st + [P] * 7),
+                           ("lk_nw_ring_width", [I]), ("lk_read_windows_in_flight", [I] * 4),
+                           ("lk_read_stats", [ctypes.POINTER(ctypes.c_ulonglong), I])):
+            getattr(lib, name).argtypes = args
+            getattr(lib, name).restype = I
     for ln in _build.build_log.get(path, "").splitlines():
         if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
             print(f"  ptxas {os.path.basename(source)} {defines or ''}: {ln.strip()}")
-    return lib, fused
+    return lib
 
 
-def run_chain(lib, fused, t, plan, dev, alone=False):
+def run_chain(lib, t, plan, dev, alone=False):
     """The bucket's chain with ``lib``: (ms per launch by kernel, launches,
     final state, consensus outputs). ``alone``: this build's single-phase
     traceback, add and topsort instead of the fused read."""
@@ -98,8 +94,6 @@ def run_chain(lib, fused, t, plan, dev, alone=False):
     B, S, Lr = seqs.shape
     (seqs_t, wts_t, lens_t), st = lockstep.start_bucket(seqs, wts, lens, nseqs, N)
     codes = torch.empty((B, N, Lp), dtype=torch.uint8, device=dev)
-    E, A = st["in_edges"].shape[2], st["al"].shape[2]
-    stream = torch.cuda.current_stream(dev).cuda_stream
     ms: dict = {}
 
     def timed(key, fn):
@@ -111,54 +105,38 @@ def run_chain(lib, fused, t, plan, dev, alone=False):
         ms[key] = ms.get(key, 0.0) + e0.elapsed_time(e1)
         return out
 
-    if fused:
-        lk._lib = lib  # the wrappers launch this build's kernels
-        for s in range(1, S):
-            act = nseqs > s
-            w = None if wts_t is None else wts_t[s]
-            best = timed("nw", lambda: lk.nw_lockstep(st, seqs_t[s], lens_t[s], act, codes, D,
-                                                       -8, -6, 8))
-            if alone:
-                ag, ar, klen = timed("tb", lambda: lk.tb_lockstep(st, codes, best, lens_t[s],
-                                                                   act, K))
-                timed("add", lambda: lk.add_lockstep(st, ag, ar, klen, seqs_t[s], w, act))
-                timed("topsort", lambda: lk.topsort_lockstep(st, act))
-            else:
-                timed("read", lambda: lk.read_lockstep(st, codes, best, lens_t[s], seqs_t[s], w,
-                                                        act, K))
-        lk._lib = None
-    else:  # the parent's one-thread kernels, as its wrappers launched them
-        ring = torch.empty((B, D + 1, lib.lk_nw_ring_width(Lr)), dtype=torch.int32, device=dev)
-        best = torch.empty(B, dtype=torch.int32, device=dev)
-        local = torch.empty((B, N), dtype=torch.int32, device=dev)
-
-        def rc(r):
-            if r != 0:
-                raise RuntimeError(f"parent launch failed: CUDA error {r}")
-
-        for s in range(1, S):
-            act = nseqs > s
-            w = None if wts_t is None else wts_t[s]
-            timed("nw", lambda: rc(lib.lk_nw_launch(
-                lk._ptrs(st), B, N, E, A, seqs_t[s].data_ptr(), Lr, lens_t[s].data_ptr(),
-                act.data_ptr(), codes.data_ptr(), Lp, best.data_ptr(), ring.data_ptr(), D, -8,
-                -6, 8, stream)))
-            ag = torch.full((B, K), -1, dtype=torch.int32, device=dev)
-            ar = torch.full((B, K), -1, dtype=torch.int32, device=dev)
-            klen = torch.empty(B, dtype=torch.int32, device=dev)
-            timed("tb", lambda: rc(lib.lk_tb_launch(
-                lk._ptrs(st), B, N, E, A, codes.data_ptr(), Lp, best.data_ptr(),
-                lens_t[s].data_ptr(), act.data_ptr(), ag.data_ptr(), ar.data_ptr(),
-                klen.data_ptr(), K, stream)))
-            timed("add", lambda: rc(lib.lk_add_launch(
-                lk._ptrs(st), B, N, E, A, ag.data_ptr(), ar.data_ptr(), klen.data_ptr(), K,
-                seqs_t[s].data_ptr(), None if w is None else w.data_ptr(), Lr, act.data_ptr(),
-                stream)))
-            timed("topsort", lambda: rc(lib.lk_topsort_launch(
-                lk._ptrs(st), B, N, E, A, act.data_ptr(), local.data_ptr(), stream)))
-    out = lk.consensus_lockstep(st, nseqs > 0)
+    lk._lib = lib  # the wrappers launch this build's kernels
+    for s in range(1, S):
+        act = nseqs > s
+        w = None if wts_t is None else wts_t[s]
+        best = timed("nw", lambda: lk.nw_lockstep(st, seqs_t[s], lens_t[s], act, codes, D,
+                                                   -8, -6, 8))
+        if alone:
+            ag, ar, klen = timed("tb", lambda: lk.tb_lockstep(st, codes, best, lens_t[s],
+                                                               act, K))
+            timed("add", lambda: lk.add_lockstep(st, ag, ar, klen, seqs_t[s], w, act))
+            timed("topsort", lambda: lk.topsort_lockstep(st, act))
+        else:
+            timed("read", lambda: lk.read_lockstep(st, codes, best, lens_t[s], seqs_t[s], w,
+                                                    act, K))
+    if hasattr(lib, "lk_consensus_windows_in_flight"):
+        out = timed("consensus", lambda: lk.consensus_lockstep(st, nseqs > 0))
+    else:  # the one-thread consensus, its scores in a device scratch
+        act = nseqs > 0
+        out = (torch.zeros((B, N), dtype=torch.uint8, device=dev),
+               torch.zeros((B, N), dtype=torch.int32, device=dev),
+               torch.empty(B, dtype=torch.int32, device=dev),
+               torch.empty(B, dtype=torch.int32, device=dev))
+        scratch = torch.empty((B, 2, N), dtype=torch.int32, device=dev)
+        E, A = st["in_edges"].shape[2], st["al"].shape[2]
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        timed("consensus", lambda: lib.lk_consensus_launch(
+            lk._ptrs(st), B, N, E, A, act.data_ptr(), *(t.data_ptr() for t in out),
+            scratch.data_ptr(), stream))
+    lk._lib = None
     n = S - 1
-    return {k: v / n for k, v in ms.items()}, n, st, out
+    ms = {k: v / (1 if k == "consensus" else n) for k, v in ms.items()}
+    return ms, n, st, out
 
 
 def queue_width(st, windows=256):
@@ -223,18 +201,20 @@ def main() -> int:
         N, D, Lp, K = plan
         ones = [[np.ones(len(s), np.int32) for s in w] for w in windows]
         t = chip_smoke.bucket_tensors(windows, ones, N, dev)
-        lk._lib = libs["this"][0]
+        lk._lib = libs["this"]
         fly = lk.read_windows_in_flight(lk.PH_ALL, N, lk.plain.E_LK, K)
+        cfly = lk.consensus_windows_in_flight(N)
         lk._lib = None
         print(f"covid bucket (bin {cfg.max_sequence_size}): {len(windows)} windows, "
               f"{t[0].shape[1]} reads, (N, D, Lp, K) = {plan}; lk_read_kernel<7> holds {fly} "
-              f"windows on the card at once: {-(-len(windows) // fly)} wave(s)")
-        run_chain(*libs["this"], t, plan, dev)  # warm
+              f"windows on the card at once: {-(-len(windows) // fly)} wave(s); "
+              f"lk_consensus_kernel holds {cfly}")
+        run_chain(libs["this"], t, plan, dev)  # warm
         ref = None
         for name in order:
             runs = [False, True] if name == "this" else [False]
             for alone in runs:
-                ms, n, st, out = run_chain(*libs[name], t, plan, dev, alone)
+                ms, n, st, out = run_chain(libs[name], t, plan, dev, alone)
                 same = True
                 if ref is None:
                     ref = (st, out)
@@ -246,23 +226,26 @@ def main() -> int:
                 walks = sum(ms.get(k, 0.0) for k in ("tb", "add", "topsort", "read"))
                 turns = total.setdefault(label, {}).setdefault(cfg_key, [])
                 turns.append(walks * n)
+                cons_turns = total.setdefault(f"{label} consensus", {}).setdefault(cfg_key, [])
+                cons_turns.append(ms["consensus"])
                 print(f"time {label}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
                       + f" a launch ({n} reads); tb + add + topsort {walks:.4f} ms a read; state "
                       f"and consensus {'equal to the first run' if same else 'DIFFER'}",
                       flush=True)
     for label, by_bucket in total.items():
         v = sum(sum(t) / len(t) for t in by_bucket.values())
-        print(f"sum over the covid buckets, {label}: tb + add + topsort {v:.3f} ms (a bucket's "
+        what = "consensus" if label.endswith("consensus") else "tb + add + topsort"
+        print(f"sum over the covid buckets, {label}: {what} {v:.3f} ms (a bucket's "
               f"turns averaged: the default covid path's)")
 
     # the debug build's counters, over every bucket's fused chain
-    lib = libs["debug"][0]
+    lib = libs["debug"]
     stats = (ctypes.c_ulonglong * len(STATS))()
     lib.lk_read_stats(stats, 1)
     for windows, plan, cfg in chip_smoke.covid_buckets(covid):
         ones = [[np.ones(len(s), np.int32) for s in w] for w in windows]
         t = chip_smoke.bucket_tensors(windows, ones, plan[0], dev)
-        run_chain(lib, True, t, plan, dev)
+        run_chain(lib, t, plan, dev)
     if lib.lk_read_stats(stats, 1) != 0:
         print("the debug build's counters could not be read")
         return 1
@@ -279,7 +262,7 @@ def main() -> int:
     windows, plan, cfg = chip_smoke.largest_covid_bucket(covid)
     t = chip_smoke.bucket_tensors(windows, [[np.ones(len(s), np.int32) for s in w]
                                             for w in windows], plan[0], dev)
-    pops, wide, rounds = queue_width(run_chain(*libs["this"], t, plan, dev)[2])
+    pops, wide, rounds = queue_width(run_chain(libs["this"], t, plan, dev)[2])
     print(f"Kahn's queue on the largest bucket's final graphs (first 256 windows): {pops} pops, "
           f"{100 * wide / pops:.2f} % with more than one node ready; popping up to 4 at once "
           f"would take {rounds} rounds ({pops / rounds:.3f} nodes a round)")

@@ -8,13 +8,24 @@ full-band instantiation against another build of csrc/poa_consensus.cu.
 2. Runs each mode (full / static / adaptive band, consensus / MSA, and the
    full-band graph export) on seeded random windows through the kernel and
    through its plain version on the card, and prints whether they are equal.
+   On those windows and on ``chip_smoke.band_edge_sets``, the banded
+   traceback's moves (the debug build's count) must equal the plain
+   chain's.
 3. With ``--parent DIR`` (a directory holding another checkout's
    genomeworks_tpu_torch/csrc/poa_consensus.cu, e.g. the parent commit
    unpacked with ``git archive``), builds that source too and times the
    full-band consensus kernel of both on the whole covid workload, packed
    per bin as PoaBatch packs it, in the order parent, this, this, parent.
-4. Times the static- and adaptive-band consensus kernels on the covid
-   workload (band 256).
+4. Times the four banded instantiations (static and adaptive band 256,
+   consensus and MSA) on the whole covid workload, packed per bin as
+   PoaBatch packs it, with the parent's too in the same turns; each run
+   must give the first run's outputs. Prints the windows a launch and the
+   windows the card holds at once.
+5. The banded consensus kernels built with ``-DPOA_PHASE_CLOCKS=1`` on the
+   same bins: cycles per phase (NW, traceback, add, topsort, consensus)
+   summed over the windows (lane 0's clock), with the NW rows and moves of
+   every pass: cycles an NW row (and its segments), a traceback move and
+   an add move, and the moves the traceback's rounds of guesses took.
 
 Prints the card's name and power limit first. Needs CUDA and nvcc.
 """
@@ -26,6 +37,7 @@ import ctypes
 import os
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -59,6 +71,12 @@ def build_parent(path):
     lib.poa_consensus_launch.argtypes = (
         [ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     lib.poa_consensus_launch.restype = ctypes.c_int
+    lib.poa_mode_slab_bytes.argtypes = [ctypes.c_int] * 8
+    lib.poa_mode_slab_bytes.restype = ctypes.c_longlong
+    lib.poa_mode_launch.argtypes = (
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 12 + [ctypes.c_longlong]
+        + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+    lib.poa_mode_launch.restype = ctypes.c_int
     return lib, proc.stdout + proc.stderr
 
 
@@ -119,7 +137,39 @@ def check_modes(dev):
         ok &= same
         print(f"check {name}: {'kernel == plain' if same else 'DIFFERS'}; statuses "
               f"{sorted(set(k[-1].tolist()))}", flush=True)
+    # the traceback's length: every move the walks took, the kernel's (the
+    # debug build's count) against the plain chain's
+    import chip_smoke
+
+    sets = [("random", ws, wts, caps, bw, ad) for bw, ad in ((128, False), (256, True))]
+    for key, (_, ews, _, ecaps, bw, kinds, _) in chip_smoke.band_edge_sets(
+            np.random.default_rng(2028)).items():
+        ecaps = ecaps or [3 * max(len(s) for s in w) for w in ews]
+        sets += [(key, ews, None, np.array(ecaps, np.int32), bw, kind == "adaptive")
+                 for kind in kinds]
+    clk, buf = debug_library(), (ctypes.c_ulonglong * 15)()
+    for key, sws, swts, scaps, bw, ad in sets:
+        sN = max(int(scaps.max()), max(len(s) for w in sws for s in w))
+        sargs = [torch.from_numpy(a).to(dev) for a in torch_poa.pack_windows(sws, swts, sN)[:4]]
+        scaps_t = torch.from_numpy(scaps).to(dev)
+        work: dict = {}
+        banded_plain.poa_banded_plain(*sargs, scaps_t, 50, 50, *sc, bw, ad, work)
+        clk.poa_phase_clocks(buf)  # zero
+        poa_cuda._launch(clk, *sargs, sN, 50, 50, *sc, band_width=bw, adaptive=ad, caps=scaps_t)
+        torch.cuda.synchronize()
+        same = clk.poa_phase_clocks(buf) == 0 and int(buf[7]) == work["moves"]
+        ok &= same
+        print(f"check traceback moves, {key} band {bw} adaptive {ad}: kernel {int(buf[7])}, "
+              f"plain {work['moves']}: {'equal' if same else 'DIFFER'}", flush=True)
     return ok
+
+
+def debug_library():
+    """The debug build (-DPOA_PHASE_CLOCKS=1), bound."""
+    clk = poa_cuda.bind(ctypes.CDLL(_build.build(poa_cuda.SOURCE, {"POA_PHASE_CLOCKS": 1})))
+    clk.poa_phase_clocks.argtypes = [ctypes.c_void_p]
+    clk.poa_phase_clocks.restype = ctypes.c_int
+    return clk
 
 
 def covid_bins(band_mode):
@@ -150,7 +200,10 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
     dev = torch.device("cuda")
-    path = _build.build(poa_cuda.SOURCE)
+    with ThreadPoolExecutor() as ex:  # this build and its debug build, started together
+        debug = ex.submit(_build.build, poa_cuda.SOURCE, {"POA_PHASE_CLOCKS": 1})
+        path = _build.build(poa_cuda.SOURCE)
+        debug.result()
     for ln in ptxas_lines(_build.build_log.get(path, "")):
         print(f"  ptxas this: {ln}")
     lib = poa_cuda.load_library()
@@ -173,16 +226,71 @@ def main() -> int:
                  for t, N in packs)
         print(f"time full-band consensus kernel ({name}) on the covid workload: {ms:.3f} ms")
     for adaptive in (False, True):
-        ms, chunks = 0.0, []
-        for cfg, ws in covid_bins(BandMode.adaptive_band if adaptive else BandMode.static_band):
+        mode = BandMode.adaptive_band if adaptive else BandMode.static_band
+        bins = []
+        for cfg, ws in covid_bins(mode):
+            bins.append(torch_poa._banded_inputs(ws, None, cfg.max_nodes_per_graph, dev))
+            L = bins[-1][0][0].shape[2]
+            for out in (0, 1):
+                print(f"{mode.name} {'MSA' if out else 'consensus'}, bin "
+                      f"{cfg.max_sequence_size} ({len(ws)} windows, N = {bins[-1][1]}): "
+                      f"poa_banded_kernel holds "
+                      f"{lib.poa_banded_windows_in_flight(1 + adaptive, out, L)} windows on the "
+                      f"card at once; window_paths at nc = N "
+                      f"{lib.poa_banded_paths(bins[-1][1], bins[-1][1])}")
+        for output in ("consensus", "msa"):
+            ref = None
+            for name in order:
+                ms, chunks, launches = 0.0, [], 0
+                outs = []
+                for (seqs, wts, lens, nseqs, caps), N in bins:
+                    before = sum(poa_cuda.launches_by_mode.values())
+                    ms += time_launch(lambda: outs.append(poa_cuda._launch(
+                        libs[name], seqs, wts, lens, nseqs, N, 50, 50, -8, -6, 8,
+                        band_width=256, adaptive=adaptive, caps=caps, output=output)))
+                    launches += (sum(poa_cuda.launches_by_mode.values()) - before) // 2
+                    chunks.append(poa_cuda.last_chunk)
+                outs = outs[1::2]  # the timed run of each bin
+                same = True
+                if ref is None:
+                    ref = outs
+                else:
+                    same = all(torch.equal(a, b) for x, y in zip(outs, ref) for a, b in zip(x, y))
+                ok &= same
+                print(f"time {mode.name} {output} kernel ({name}) on the covid workload (band "
+                      f"256): {ms:.3f} ms, {launches} launches, windows a launch {chunks}; "
+                      f"outputs {'equal to the first run' if same else 'DIFFER'}", flush=True)
+    clk, buf = debug_library(), (ctypes.c_ulonglong * 15)()
+    phases = ("nw", "traceback", "add", "topsort", "consensus")
+    for adaptive in (False, True):
+        mode = BandMode.adaptive_band if adaptive else BandMode.static_band
+        clk.poa_phase_clocks(buf)  # zero
+        for cfg, ws in covid_bins(mode):
             (seqs, wts, lens, nseqs, caps), N = torch_poa._banded_inputs(
                 ws, None, cfg.max_nodes_per_graph, dev)
-            ms += time_launch(lambda: poa_cuda._launch(
-                lib, seqs, wts, lens, nseqs, N, 50, 50, -8, -6, 8, band_width=256,
-                adaptive=adaptive, caps=caps))
-            chunks.append(poa_cuda.last_chunk)
-        print(f"time {'adaptive' if adaptive else 'static'}-band consensus kernel on the covid "
-              f"workload (band 256): {ms:.3f} ms; windows in flight per launch {chunks}")
+            poa_cuda._launch(clk, seqs, wts, lens, nseqs, N, 50, 50, -8, -6, 8, band_width=256,
+                             adaptive=adaptive, caps=caps)
+        torch.cuda.synchronize()
+        if clk.poa_phase_clocks(buf) != 0:
+            print("reading the phase clocks failed")
+            return 1
+        cyc = dict(zip(phases, (int(x) for x in buf[:5])))
+        windows, rows, moves = (int(x) for x in buf[5:8])
+        total = max(1, sum(cyc.values()))
+        segs = [int(x) for x in buf[8:12]]
+        rounds, guessed = int(buf[13]), int(buf[14])
+        print(f"  NW row segments {mode.name}: " + ", ".join(
+            f"{k} {c / max(rows, 1):.0f}" for k, c in zip(
+                ("boundary", "predecessors", "closure and stores", "row end"), segs))
+              + f" cycles a row; traceback: {rounds} rounds of guesses took {guessed} of "
+              f"{moves} moves ({guessed / max(rounds, 1):.2f} a round)")
+        print(f"phase split {mode.name} consensus on the covid workload: {windows} windows, "
+              f"{rows} NW rows, {moves} moves; " + ", ".join(
+                  f"{p} {100 * c / total:.1f} %" for p, c in cyc.items())
+              + f"; {cyc['nw'] / max(rows, 1):.0f} cycles an NW row, "
+              f"{cyc['traceback'] / max(moves, 1):.0f} a traceback move, "
+              f"{cyc['add'] / max(moves, 1):.0f} an add move, "
+              f"{total / max(windows, 1):.0f} a window", flush=True)
     print("ALL EQUAL" if ok else "SOME MODE DIFFERS")
     return 0 if ok else 1
 

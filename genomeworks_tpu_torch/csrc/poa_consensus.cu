@@ -12,11 +12,11 @@
 //   backbone -> [ NW -> traceback -> add alignment -> topological sort ]* ->
 //   consensus | MSA | graph export
 //
-// Two kernels:
-// - Full band: poa_window_kernel<CPL, OUT>, one warp per window, several
-//   windows a block (OUT 0 consensus, 1 MSA, 2 the graph).
-// - Banded: poa_consensus_kernel<BAND, OUT>, one block of 128 threads per
-//   window (BAND 1 static, 2 adaptive; OUT 0 consensus, 1 MSA).
+// Two kernels, each one warp per window, several windows a block:
+// - Full band: poa_window_kernel<CPL, OUT> (OUT 0 consensus, 1 MSA, 2 the
+//   graph).
+// - Banded: poa_banded_kernel<BAND, OUT> (BAND 1 static, 2 adaptive; OUT 0
+//   consensus, 1 MSA).
 //
 // Full band has the semantics of the port's plain chain (poa/torch_poa.py):
 // int32 scores, the traceback priority codes (diagonal by edge order <
@@ -26,7 +26,8 @@
 // poa/banded.py (nw_align_banded_with_rerun) and its plain batched version
 // poa/banded_plain.py: band rows of bw + 8 int32 slots (slot 0 the merged
 // column -1 boundary, which get_score also maps column band_start to), the
-// band start from the IEEE f32 gradient, adaptive rules 1-3 in f64, the
+// band start from the IEEE f32 gradient (recomputed wherever a row's start
+// is needed, so no starts are stored), adaptive rules 1-3 in f64, the
 // chunk-of-4 predecessor reads under the conservative guard, the closure
 // seeded from the boundary, a traceback that re-derives each move from the
 // scores (so no codes are stored), the band-shift rules 7-8 and one re-run
@@ -82,9 +83,28 @@
 //   use the ring's shared memory when they fit it (window_paths). Else the
 //   add walks on lane 0 alone, the topsort is topsort() on lane 0, and the
 //   scores stay in device memory.
-// - The banded modes keep a block of 128 threads per window: its threads
-//   across the band's lanes, a block-wide prefix max with two barriers a
-//   row, and the pointer chases on thread 0.
+// - The banded modes run the same chain a warp per window
+//   (poa_banded_kernel), with the full band's add, topsort and consensus:
+//   * NW: each lane holds BAND_CPL = 8 consecutive band lanes (two chunks
+//     of CELLS = 4, so each chunk's predecessor guard stays in one lane) of
+//     a tile of 256; wider bands (adaptive, up to 1536) run in tiles with
+//     the closure's carry. The closure is one shuffle scan. A ring of the
+//     last R band rows (R = 8 at band 256, fewer for wider bands) in shared
+//     memory serves the predecessor reads at short distance, 16 bytes at a
+//     time; the farther ones come from the slab, with no distance cap.
+//     Every row is also written to the slab, which the traceback reads. A
+//     row's metadata and first two predecessors are loaded 32 rows ahead.
+//   * Traceback: traceback_banded's walk, each move re-derived from the
+//     scores. The warp guesses the next 16 moves to be diagonals to the
+//     first predecessor, each lane walking to its cell through a table of
+//     the rows in shared memory, checking its move as the reference would
+//     and loading its cell's scores, so that a run of such moves costs one
+//     round trip; other moves are lane 0's, each a round trip (its scores
+//     loaded together). Its start (the first sink row with the highest
+//     score at the read's last column) is found by the warp.
+//   * Add: add_walk with cpu_reference's precedence (FIRST_WINS); topsort
+//     and consensus as the full band (window_paths with BAND_REGION).
+//   * MSA: the DFS and the rows on lane 0.
 //
 // Priority codes are uint8 while 3E + 1 <= 255 (E <= 84) and uint16 above,
 // so E reaches 21844; the slab's code matrix grows only for E > 84.
@@ -99,10 +119,7 @@
 
 namespace {
 
-constexpr int NT = 128;              // threads per block of the banded kernel
-constexpr int NWARP = NT / 32;
-constexpr int CPT = 4;               // band lanes per thread per tile
-constexpr int TILE = NT * CPT;       // band lanes per tile
+constexpr unsigned FULL = 0xffffffffu;  // every lane of a warp
 constexpr int NEG_ID = INT_MIN;      // identity of max in the prefix scan
 constexpr int NEG_SINK = -(1 << 30); // jax_poa's NEG: "no sink row yet"
 
@@ -110,12 +127,17 @@ constexpr int NEG_SINK = -(1 << 30); // jax_poa's NEG: "no sink row yet"
 constexpr int MIN_SCORE = -(1 << 30);
 constexpr int MAX_BAND = 1536;       // MAX_ADAPTIVE_BAND_WIDTH
 constexpr int PAD = 8;               // BANDED_MATRIX_RIGHT_PADDING
+constexpr int CELLS = 4;             // CELLS_PER_THREAD: a predecessor read's chunk
 constexpr int SHIFT_LEFT = -10, SHIFT_RIGHT = -11, LOOP_FAILED = -1;
 
-// Debug build (-DPOA_PHASE_CLOCKS=1, off in normal builds): the full-band
-// chain sums clock64() cycles per phase over its windows (lane 0's clock):
-// NW, traceback, add, topsort, the final consensus / MSA / export; and
-// counts windows, NW rows and alignment moves.
+// Debug build (-DPOA_PHASE_CLOCKS=1, off in normal builds): the chain of
+// either kernel sums clock64() cycles per phase over its windows (lane 0's
+// clock): NW, traceback, add, topsort, the final consensus / MSA / export;
+// and counts windows, NW rows and alignment moves (every pass's, in the
+// banded modes). Counters 8-14: the full band's NW row segments, cells and
+// predecessor cells; the banded NW's row segments (8-11: the boundary, the
+// predecessors, the closure and stores, the row's end) and its traceback's
+// rounds and guessed moves (13, 14).
 #ifdef POA_PHASE_CLOCKS
 constexpr int PHASE_COUNTERS = 15;
 __device__ unsigned long long g_phase_clocks[PHASE_COUNTERS];
@@ -177,7 +199,7 @@ __host__ __device__ inline int code_bytes(int E) { return 3 * E + 1 > 255 ? 2 : 
 struct Layout {
   size_t nodes, in_count, out_count, al_count, cov, sorted, pos_of, local,
       cscore, cpred, meta, mark, in_edges, in_w, out_edges, rpred, al, ag, ar,
-      scores, codes, bstart, seq_next, begin, col, chk, stack, total;
+      scores, codes, seq_next, begin, col, chk, stack, total;
   __host__ __device__ Layout(int N, int L, int E, int A, int band = 0, int out = 0, int S = 0,
                              int W = 0) {
     size_t o = 0;
@@ -193,11 +215,9 @@ struct Layout {
     if (band == 0) {
       scores = take(o, cells * 4);
       codes = take(o, cells * code_bytes(E));  // uint8, or uint16 past E = 84
-      bstart = 0;
     } else {
       scores = take(o, size_t(N + 1) * W * 4);  // band rows, no codes
       codes = 0;
-      bstart = take(o, size_t(N + 1) * 4);
     }
     seq_next = begin = col = chk = stack = 0;
     if (out == 1) {
@@ -233,14 +253,14 @@ struct Win {
       *scores;
   uint8_t* codes;  // full band: cb bytes a code
   int N, L, E, A, cb;
-  // banded modes and MSA only
-  int *bstart, *seq_next, *begin, *col, *chk, *stack;
+  // MSA only
+  int *seq_next, *begin, *col, *chk, *stack;
   int S;
 };
 
 // A window's view of the slab at `base`.
 __device__ Win slab_win(uint8_t* base, const Layout& lay, int N, int L, int E, int A, int S,
-                        bool banded, bool msa) {
+                        bool msa) {
   Win w;
   w.nodes = (int*)(base + lay.nodes);
   w.in_count = (int*)(base + lay.in_count);
@@ -268,7 +288,6 @@ __device__ Win slab_win(uint8_t* base, const Layout& lay, int N, int L, int E, i
   w.E = E;
   w.A = A;
   w.cb = code_bytes(E);
-  w.bstart = banded ? (int*)(base + lay.bstart) : nullptr;
   w.seq_next = w.begin = w.col = w.chk = w.stack = nullptr;
   w.S = S;
   if (msa) {
@@ -333,209 +352,163 @@ __device__ bool band_params(int nc, int rl, int band_width, bool adaptive, int r
 __device__ __forceinline__ int band_start(int row, const Band& b) {
   const int diag = int(__fmul_rn(float(row), b.gradient));
   int start = max(0, diag - b.shift);
-  if (b.max_column < start + b.bw) start = max(0, b.max_column - b.bw + CPT);
-  return start - start % CPT;
+  if (b.max_column < start + b.bw) start = max(0, b.max_column - b.bw + CELLS);
+  return start - start % CELLS;
 }
+
+// The start a pass gave band row `row`: row 0's is 0.
+__device__ __forceinline__ int row_start(int row, const Band& b) {
+  return row ? band_start(row, b) : 0;
+}
+
+// A band row of the slab holds slot s at int SLOT0 + s of its W, so that
+// the slots a lane computes (1 + 8l ..) start on 16 bytes.
+constexpr int SLOT0 = 3;
 
 // get_score (banded.py :126-133): out of the row's band -> MIN_SCORE, column
 // -1 -> slot 0, and column band_start -> slot 0 as well.
 __device__ __forceinline__ int get_score(const Win& w, const Band& b, int row, int col) {
-  const int bs = w.bstart[row];
+  const int bs = row_start(row, b);
   const int be = min(bs + b.bw, b.max_column);
   if ((col > be || col < bs) && col != -1) return MIN_SCORE;
-  return w.scores[size_t(row) * b.W + (col == -1 ? 0 : col - bs)];
+  return w.scores[size_t(row) * b.W + SLOT0 + (col == -1 ? 0 : col - bs)];
 }
 
-// Banded NW forward pass of the read in s_read (length rl) against the
-// window's graph of nc nodes: band rows 0..nc and their starts. All
-// threads call it.
-__device__ void nw_banded_forward(const Win& w, const Band& b, const uint8_t* s_read, int rl,
-                                  int nc, int gap, int mismatch, int match, int* s_wtot) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int E = w.E, W = b.W, bw = b.bw;
-  for (int r = tid; r < nc; r += NT) {
-    const int nid = w.sorted[r];
-    const int pc = w.in_count[nid];
-    w.meta[r] = (w.nodes[nid] & 0xff) | ((w.out_count[nid] == 0) << 8) | (max(pc, 1) << 16);
-    int* rp = w.rpred + size_t(r) * E;
-    if (pc == 0) rp[0] = 0;  // a source row's predecessor is the virtual row 0
-    for (int e = 0; e < pc; ++e) rp[e] = w.pos_of[w.in_edges[size_t(nid) * E + e]] + 1;
-  }
-  for (int k = tid; k < W; k += NT) w.scores[k] = k * gap;  // row 0: band start 0
-  if (tid == 0) w.bstart[0] = 0;
-  __syncthreads();
-
-  for (int r = 0; r < nc; ++r) {
-    const int row = r + 1;
-    const int meta = w.meta[r];
-    const int nb = meta & 0xff, np = meta >> 16;
-    const int* rp = w.rpred + size_t(r) * E;
-    const bool source = rp[0] == 0;
-    const int bs = band_start(row, b);
-    // the column -1 boundary (:147-161)
-    int fe;
-    if (source) {
-      fe = gap;
-    } else if (bs > CPT && np == 1) {
-      fe = MIN_SCORE + gap;
-    } else {
-      int pen = MIN_SCORE;
-      for (int e = 0; e < np; ++e) pen = max(pen, w.scores[size_t(rp[e]) * W]);
-      fe = pen + gap;
-    }
-    int* row_out = w.scores + size_t(row) * W;
-    int carry = fe + gap;  // seeds the closure: v[-1] = fe
-    for (int t0 = 0; t0 < bw; t0 += TILE) {
-      const int k0 = t0 + tid * CPT;  // this thread's chunk of 4 lanes
-      const int rpos = bs + k0;
-      int cand[CPT], prof[CPT];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        cand[c] = MIN_SCORE;
-        const int q = rpos + c;
-        prof[c] = (q < rl && s_read[q] == nb) ? match : mismatch;
-      }
-      if (k0 < bw) {
-        for (int e = 0; e < np; ++e) {
-          const int pi = rp[e];
-          const int pbs = w.bstart[pi];
-          const int pbe = min(pbs + bw - CPT, b.max_column);
-          int v[CPT + 1];
-          if (rpos <= pbe && rpos >= pbs) {
-            const int* prow = w.scores + size_t(pi) * W + (rpos - pbs);
-#pragma unroll
-            for (int c = 0; c <= CPT; ++c) v[c] = prow[c];
-          } else {
-#pragma unroll
-            for (int c = 0; c <= CPT; ++c) v[c] = MIN_SCORE;
-          }
-#pragma unroll
-          for (int c = 0; c < CPT; ++c)
-            cand[c] = max(cand[c], max(v[c] + prof[c], v[c + 1] + gap));
-        }
-      }
-      // closure: v[k] = k*gap + max(fe + gap, max_{m<=k}(cand[m] - m*gap))
-      int pm[CPT], run = NEG_ID;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const int k = k0 + c;
-        if (k < bw) run = max(run, cand[c] - k * gap);
-        pm[c] = run;
-      }
-      const int incl = warp_incl_max(run);
-      int excl = __shfl_up_sync(0xffffffffu, incl, 1);
-      if (lane == 0) excl = NEG_ID;
-      if (lane == 31) s_wtot[warp] = incl;
-      __syncthreads();
-      int pre = max(carry, excl), tile_max = carry;
-      for (int q = 0; q < NWARP; ++q) {
-        if (q < warp) pre = max(pre, s_wtot[q]);
-        tile_max = max(tile_max, s_wtot[q]);
-      }
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const int k = k0 + c;
-        if (k < bw) row_out[1 + k] = max(pre, pm[c]) + k * gap;
-      }
-      carry = tile_max;
-      __syncthreads();  // s_wtot free again
-    }
-    if (tid == 0) {
-      row_out[0] = fe;
-      w.bstart[row] = bs;
-    }
-    __syncthreads();  // row visible to the next row
-  }
-}
-
-// Banded traceback (banded.py :196-263) from the first strict maximum at
-// column rl over the sink rows; ag/ar in backward order. Returns the
-// alignment length, or a negative code: SHIFT_LEFT / SHIFT_RIGHT when rules
-// 7-8 fire (first pass of the adaptive mode only), LOOP_FAILED. One thread.
+// Banded traceback (banded.py :196-263) from row i0 (the first strict
+// maximum at column rl over the sink rows, banded_best_row) and column rl;
+// ag/ar in backward order. Returns the alignment length, or a negative
+// code: SHIFT_LEFT / SHIFT_RIGHT when rules 7-8 fire (first pass of the
+// adaptive mode only), LOOP_FAILED. By the warp, the reference's moves in
+// its order:
+// - a round guesses the next TB_GUESS moves to be diagonals to the first
+//   predecessor: lane l follows first predecessors l rows down from row i
+//   (a table in shared memory) to its cell (I, j - l), and its guess holds
+//   where the diagonal to I's first predecessor gives the cell's score
+//   (the reference's first check, so its move). The lanes load their
+//   cells' scores at once; the moves up to the first guess that fails (or
+//   the first at which rules 7-8 fire, or the cap) are taken, their ag/ar
+//   written by their lanes;
+// - then lane 0 takes the next move as the reference does: its scores (the
+//   horizontal one, and the diagonal and vertical ones of its first TB_PRE
+//   predecessors) loaded together, then checked in order. The score that
+//   decides a move is the next move's own, so it is carried.
+// `table` (shared memory, or nullptr) holds each row's metadata and first
+// predecessor.
+constexpr int TB_PRE = 4, TB_GUESS = 16;
 __device__ int traceback_banded(const Win& w, const Band& b, const uint8_t* s_read, int rl,
-                                int nc, int gap, int mismatch, int match, bool rules_78) {
+                                int nc, int i0, int gap, int mismatch, int match,
+                                bool rules_78, const int2* table) {
+  const int lane = threadIdx.x & 31;
   const int E = w.E, K = w.N + w.L;
-  int i = 0, j = rl, mscore = MIN_SCORE;
-  for (int idx = 1; idx <= nc; ++idx) {
-    if ((w.meta[idx - 1] >> 8) & 1) {
-      const int s = get_score(w, b, idx, j);
-      if (mscore < s) {
-        mscore = s;
-        i = idx;
-      }
-    }
-  }
   const int cap = rl + nc + 2;
   const int thr = max(1, b.max_column / 1024);
-  int loops = 0, k = 0;
+  auto row_meta = [&](int r) {  // (metadata, first predecessor) of band row r >= 1
+    return table ? table[r - 1] : make_int2(w.meta[r - 1], w.rpred[size_t(r - 1) * E]);
+  };
+  auto rule = [&](int r, int c) {  // rules 7-8 at cell (r, c), r and c nonzero
+    if (!rules_78 || thr >= c || c >= b.max_column - thr) return 0;
+    const int bs = band_start(r, b);
+    return c <= bs + thr ? SHIFT_LEFT : (c >= bs + b.bw - thr ? SHIFT_RIGHT : 0);
+  };
+  int i = i0, j = rl, loops = 0, k = 0;
+  int sij = get_score(w, b, i, j);
   while ((i != 0 || j != 0) && loops < cap) {
-    ++loops;
-    const int sij = get_score(w, b, i, j);
-    int pi_ = 0, pj = 0;
-    bool found = false;
-    const int* rp = w.rpred + size_t(i > 0 ? i - 1 : 0) * E;
-    const int np = i > 0 ? (w.meta[i - 1] >> 16) : 0;
-    if (i != 0 && j != 0) {
-      if (rules_78 && thr < j && j < b.max_column - thr) {
-        const int bs = band_start(i, b);
-        if (j <= bs + thr) return SHIFT_LEFT;
-        if (j >= bs + b.bw - thr) return SHIFT_RIGHT;
+    // a round of guesses: lanes 0 .. TB_GUESS find their cells
+    int I = i;
+    for (int t = lane <= TB_GUESS ? lane : 0; t > 0 && I > 0; --t) I = row_meta(I).y;
+    const int J = j - lane;
+    int fire = 0, s_cur = 0;
+    bool hit = false;
+    if (lane <= TB_GUESS && J >= 0) s_cur = get_score(w, b, I, J);
+    if (lane < TB_GUESS && I > 0 && J > 0) {
+      const int2 t = row_meta(I);
+      fire = rule(I, J);
+      hit = s_cur == get_score(w, b, t.y, J - 1) +
+                         ((t.x & 0xff) == s_read[J - 1] ? match : mismatch);
+    }
+    const bool capped = loops + lane >= cap;
+    const unsigned stop = __ballot_sync(FULL, capped || fire != 0 || !hit);
+    const int m = __ffs(stop) - 1;  // the moves taken: at most TB_GUESS
+#ifdef POA_PHASE_CLOCKS
+    if (lane == 0) {  // the banded chain's counters 13-14: rounds, guessed moves
+      atomicAdd(&g_phase_clocks[13], 1ull);
+      atomicAdd(&g_phase_clocks[14], (unsigned long long)m);
+    }
+#endif
+    if (lane < m && k + lane < K) {
+      w.ag[k + lane] = w.sorted[I - 1];
+      w.ar[k + lane] = J - 1;
+    }
+    k += m;
+    loops += m;
+    i = __shfl_sync(FULL, I, m);
+    j -= m;
+    sij = __shfl_sync(FULL, s_cur, m);
+    if (__shfl_sync(FULL, capped, m)) break;
+    const int code = __shfl_sync(FULL, fire, m);
+    if (code) return code;
+    if (m == TB_GUESS || (i | j) == 0) continue;  // another round, or the walk's end
+    // one move as the reference takes it
+    int pi_ = 0, pj = 0, next = 0;
+    if (lane == 0) {
+      ++loops;
+      int meta = 0, p0 = 0;
+      if (i != 0) {
+        const int2 t = row_meta(i);
+        meta = t.x;
+        p0 = t.y;
       }
-      const int mcost = (w.meta[i - 1] & 0xff) == s_read[j - 1] ? match : mismatch;
-      for (int e = 0; e < np && !found; ++e) {
-        if (sij == get_score(w, b, rp[e], j - 1) + mcost) {
-          pi_ = rp[e];
-          pj = j - 1;
-          found = true;
+      const int np = meta >> 16;  // 0 in row 0
+      const int* rp = w.rpred + size_t(i > 0 ? i - 1 : 0) * E;
+      const int hs = get_score(w, b, i, j - 1);
+      int pr[TB_PRE], ds[TB_PRE], vs[TB_PRE];
+#pragma unroll
+      for (int e = 0; e < TB_PRE; ++e) {
+        pr[e] = e == 0 ? p0 : (e < np ? rp[e] : 0);
+        ds[e] = e < np && j != 0 ? get_score(w, b, pr[e], j - 1) : MIN_SCORE;
+        vs[e] = e < np ? get_score(w, b, pr[e], j) : MIN_SCORE;
+      }
+      bool found = false;
+      if (i != 0 && j != 0) {
+        const int mcost = (meta & 0xff) == s_read[j - 1] ? match : mismatch;
+        for (int e = 0; e < np && !found; ++e) {
+          const int s = e < TB_PRE ? ds[e] : get_score(w, b, rp[e], j - 1);
+          if (sij == s + mcost) {
+            pi_ = e < TB_PRE ? pr[e] : rp[e];
+            pj = j - 1;
+            next = s;
+            found = true;
+          }
         }
       }
-    }
-    if (!found && i != 0) {
-      for (int e = 0; e < np && !found; ++e) {
-        if (sij == get_score(w, b, rp[e], j) + gap) {
-          pi_ = rp[e];
-          pj = j;
-          found = true;
+      if (!found && i != 0) {
+        for (int e = 0; e < np && !found; ++e) {
+          const int s = e < TB_PRE ? vs[e] : get_score(w, b, rp[e], j);
+          if (sij == s + gap) {
+            pi_ = e < TB_PRE ? pr[e] : rp[e];
+            pj = j;
+            next = s;
+            found = true;
+          }
         }
       }
+      if (!found && sij == hs + gap) {
+        pi_ = i;
+        pj = j - 1;
+        next = hs;
+      }
+      if (k < K) {
+        w.ag[k] = (pi_ == i) ? -1 : w.sorted[i - 1];
+        w.ar[k] = (pj == j) ? -1 : j - 1;
+      }
     }
-    if (!found && sij == get_score(w, b, i, j - 1) + gap) {
-      pi_ = i;
-      pj = j - 1;
-    }
-    if (k < K) {
-      w.ag[k] = (pi_ == i) ? -1 : w.sorted[i - 1];
-      w.ar[k] = (pj == j) ? -1 : j - 1;
-    }
+    loops = __shfl_sync(FULL, loops, 0);
+    i = __shfl_sync(FULL, pi_, 0);
+    j = __shfl_sync(FULL, pj, 0);
+    sij = __shfl_sync(FULL, next, 0);
     ++k;
-    i = pi_;
-    j = pj;
   }
   return loops >= cap ? LOOP_FAILED : k;
-}
-
-// nw_align_banded_with_rerun: a pass, and after a band-shift code one
-// re-run with it. Returns (in every thread) the alignment length or a
-// negative code, which the chain turns into status 3.
-template <int BAND>
-__device__ int nw_banded(const Win& w, const uint8_t* s_read, int rl, int nc, int gap,
-                         int mismatch, int match, int band_width, int* s_wtot, int* s_code) {
-  constexpr bool adaptive = BAND == 2;
-  int rerun = 0, code = 0;
-  for (int pass = 0; pass < 2; ++pass) {
-    Band b;
-    if (!band_params(nc, rl, band_width, adaptive, rerun, &b)) return rerun;
-    nw_banded_forward(w, b, s_read, rl, nc, gap, mismatch, match, s_wtot);
-    if (threadIdx.x == 0)
-      *s_code = traceback_banded(w, b, s_read, rl, nc, gap, mismatch, match,
-                                 adaptive && rerun == 0 && b.bw < MAX_BAND);
-    __syncthreads();
-    code = *s_code;
-    __syncthreads();  // every thread has read s_code
-    if (code != SHIFT_LEFT && code != SHIFT_RIGHT) break;
-    rerun = code;
-  }
-  return code;
 }
 
 // True when two columns of the walk touch the same aligned clique, named by
@@ -706,16 +679,6 @@ __device__ bool add_steps(const Win& w, int aln_len, int from, int to, const uin
   return false;
 }
 
-// The whole walk of an alignment of aln_len moves; returns the error.
-template <bool FIRST_WINS, bool MSA>
-__device__ int add_alignment(const Win& w, int aln_len, const uint8_t* s_read,
-                             const int* wts, int* node_count, int stamp) {
-  Walk k{-1, 0, -1, *node_count, 0, -1};
-  add_steps<FIRST_WINS, MSA>(w, aln_len, aln_len - 1, -1, s_read, wts, stamp, k);
-  *node_count = k.nc;
-  return k.err;
-}
-
 // Kahn's sort (cudapoa_topsort.cuh:46): seeds by ascending id, FIFO
 // expansion in out-edge order. Returns 100 if the graph is not a DAG.
 __device__ int topsort(const Win& w, int nc) {
@@ -742,95 +705,6 @@ __device__ int topsort(const Win& w, int nc) {
     }
   }
   return tail != nc ? 100 : 0;
-}
-
-// One row of the heaviest-edge pass with the reference's tie-breaks.
-__device__ void consensus_row(const Win& w, int nid, bool skip_cleared, int* s_out, int* p_out) {
-  const int E = w.E;
-  const int pc = w.in_count[nid];
-  const int* il = w.in_edges + size_t(nid) * E;
-  const int* iw = w.in_w + size_t(nid) * E;
-  int s = skip_cleared ? -1 : w.cscore[nid];
-  int p = -1;
-  for (int e = 0; e < pc; ++e) {
-    const int begin = il[e];
-    const int sb = w.cscore[begin];
-    if (skip_cleared && sb == -1) continue;
-    const int ew = iw[e];
-    if (s < ew || (s == ew && p != -1 && w.cscore[p] <= sb)) {
-      s = ew;
-      p = begin;
-    }
-  }
-  if (p != -1) s += w.cscore[p];
-  *s_out = s;
-  *p_out = p;
-}
-
-// Heaviest path, branch completion and backward emission
-// (cudapoa_generate_consensus.cuh). Returns the error (0 or 3).
-__device__ int consensus(const Win& w, int nc, uint8_t* cons, int* cov_out, int* length) {
-  const int E = w.E, A = w.A;
-  for (int n = 0; n < nc; ++n) {
-    w.cscore[n] = -1;
-    w.cpred[n] = -1;
-  }
-  int max_score = -1, max_id = 0;
-  for (int gp = 0; gp < nc; ++gp) {
-    const int nid = w.sorted[gp];
-    int s, p;
-    consensus_row(w, nid, false, &s, &p);
-    w.cscore[nid] = s;
-    w.cpred[nid] = p;
-    if (max_score <= s) {
-      max_score = s;
-      max_id = nid;
-    }
-  }
-  int loops = 0;
-  while (w.out_count[max_id] != 0 && loops < nc) {
-    const int pos = w.pos_of[max_id];
-    const int oc = w.out_count[max_id];
-    for (int oe = 0; oe < oc; ++oe) {
-      const int out = w.out_edges[size_t(max_id) * E + oe];
-      const int ic = w.in_count[out];
-      for (int ie = 0; ie < ic; ++ie) {
-        const int iid = w.in_edges[size_t(out) * E + ie];
-        if (iid != max_id) w.cscore[iid] = -1;
-      }
-    }
-    int mxs = 0, mxi = 0;
-    for (int gp = pos + 1; gp < nc; ++gp) {
-      const int nid = w.sorted[gp];
-      int s, p;
-      consensus_row(w, nid, true, &s, &p);
-      w.cpred[nid] = p;
-      w.cscore[nid] = s;
-      if (mxs <= s) {
-        mxs = s;
-        mxi = nid;
-      }
-    }
-    max_id = mxi;
-    ++loops;
-  }
-  if (loops >= nc && loops > 0) return 3;
-  int cur = max_id, k = 0;
-  while (true) {
-    int c = w.cov[cur];
-    const int nal = w.al_count[cur];
-    for (int a = 0; a < nal; ++a) c += w.cov[w.al[size_t(cur) * A + a]];
-    if (k < w.N) {
-      cons[k] = uint8_t(w.nodes[cur]);
-      cov_out[k] = c;
-    }
-    ++k;
-    const int p = w.cpred[cur];
-    if (p == -1) break;
-    cur = p;
-  }
-  *length = k;
-  return 0;
 }
 
 // -- MSA (cudapoa_generate_msa.cuh) -----------------------------------------------
@@ -910,7 +784,6 @@ __device__ int msa_emit(const Win& w, int nc, int nseq, int Nrow, uint8_t* msa) 
 
 // -- full band: one warp per window ------------------------------------------------
 
-constexpr unsigned FULL = 0xffffffffu;
 constexpr int NEG_HALF = INT_MIN / 2;  // below every score; a score added to it stays below
 constexpr int WIN_WARPS = 4;           // windows a block, at most
 constexpr int RING_MAX = 8;            // score rows in the shared ring, at most
@@ -1247,21 +1120,23 @@ __device__ int traceback(const Win& w, int best_i, int rl) {
   return (i != 0 || j != 0) ? -1 : k;
 }
 
-// add_alignment<false, MSA> of the full band, by the warp: its lanes load
-// the walk's moves 32 at a time into `st` (shared memory), with what the
-// walk reads of each move's graph node (those loads do not depend on the
-// walk), and lane 0 walks them (add_steps, STAGED), so that a step that
-// lands on its graph node, most steps, waits for no device memory. Without
-// shared memory for the stage (st nullptr) lane 0 walks alone. Returns the
-// error in every lane.
-template <bool MSA>
+// The add of an alignment of aln_len moves (add_steps<FIRST_WINS, MSA>:
+// false for the full band's precedence, true for the banded modes'), by
+// the warp: its lanes load the walk's moves 32 at a time into `st` (shared
+// memory), with what the walk reads of each move's graph node (those loads
+// do not depend on the walk), and lane 0 walks them (add_steps, STAGED), so
+// that a step that lands on its graph node, most steps, waits for no device
+// memory. Without shared memory for the stage (st nullptr) lane 0 walks
+// alone. Returns the error in every lane.
+template <bool FIRST_WINS, bool MSA>
 __device__ int add_walk(const Win& w, int aln_len, const uint8_t* s_read, const int* wts,
                         int* node_count, int stamp, AddStage* st, unsigned* touched) {
   const int lane = threadIdx.x & 31;
   const int E = w.E;
   Walk k{-1, 0, -1, *node_count, 0, -1};
   if (st == nullptr) {
-    if (lane == 0) add_steps<false, MSA>(w, aln_len, aln_len - 1, -1, s_read, wts, stamp, k);
+    if (lane == 0)
+      add_steps<FIRST_WINS, MSA>(w, aln_len, aln_len - 1, -1, s_read, wts, stamp, k);
   } else {
     for (int q = lane; q < (w.N + 31) / 32; q += 32) touched[q] = 0;
     bool stop = false;
@@ -1291,9 +1166,9 @@ __device__ int add_walk(const Win& w, int aln_len, const uint8_t* s_read, const 
       }
       __syncwarp();  // the stage (and the bits cleared) before lane 0 walks it
       if (lane == 0)
-        stop = add_steps<false, MSA, true>(w, aln_len, aln_len - 1 - t0,
-                                          max(aln_len - 1 - t0 - 32, -1), s_read, wts,
-                                          stamp, k, st, touched);
+        stop = add_steps<FIRST_WINS, MSA, true>(w, aln_len, aln_len - 1 - t0,
+                                                max(aln_len - 1 - t0 - 32, -1), s_read, wts,
+                                                stamp, k, st, touched);
       stop = __shfl_sync(FULL, int(stop), 0);  // lane 0 is done with the stage
     }
   }
@@ -1529,7 +1404,7 @@ poa_window_kernel(const uint8_t* __restrict__ seqs, const int* __restrict__ wts,
   __shared__ Win s_win[WIN_WARPS];
   if (lane == 0)
     s_win[warp] = slab_win(scratch + size_t(i) * size_t(slab_bytes),
-                           Layout(N, L, E, A, 0, OUT, S), N, L, E, A, S, false, OUT == 1);
+                           Layout(N, L, E, A, 0, OUT, S), N, L, E, A, S, OUT == 1);
   __syncwarp();
   const Win& w = s_win[warp];
 
@@ -1601,7 +1476,7 @@ poa_window_kernel(const uint8_t* __restrict__ seqs, const int* __restrict__ wts,
     // they fit; the sort's working set too (node ids in its 16 bits)
     if (!err) {
       const bool staged = !(window_paths(ring_bytes(), N, nc) & WIN_ADD_UNSTAGED);
-      err = add_walk<OUT == 1>(w, aln_len, s_read, wts + (b * S + s) * L, &nc, s,
+      err = add_walk<false, OUT == 1>(w, aln_len, s_read, wts + (b * S + s) * L, &nc, s,
                                staged ? reinterpret_cast<AddStage*>(ring) : nullptr,
                                reinterpret_cast<unsigned*>(ring + sizeof(AddStage) / 4));
     }
@@ -1664,123 +1539,420 @@ poa_window_kernel(const uint8_t* __restrict__ seqs, const int* __restrict__ wts,
   PHASE_FLUSH();
 }
 
-// At least POA_MIN_BLOCKS (12) blocks per SM, so at most 40 registers a
-// thread: the kernel is latency-bound, and windows in flight beat spills
-// (measured when this kernel also ran the full band, built with
-// -DPOA_MIN_BLOCKS=k: 12 blocks ran the covid workload in 141 ms against
-// 148 ms for 8 and 190 ms for k = 0).
-#ifndef POA_MIN_BLOCKS
-#define POA_MIN_BLOCKS 12
-#endif
-#if POA_MIN_BLOCKS > 0
-#define POA_LAUNCH_BOUNDS __launch_bounds__(NT, POA_MIN_BLOCKS)
-#else
-#define POA_LAUNCH_BOUNDS __launch_bounds__(NT)
-#endif
-// The banded modes, one block per window: BAND 1 static, 2 adaptive; OUT 0
-// consensus (cons, cov, len, err in o0..o3), 1 MSA (rows (B, S, N) uint8,
-// msa_len, err in o0..o2). caps (B,): each window's node cap.
+// -- banded modes: one warp per window ---------------------------------------------
+
+constexpr int BAND_CPL = 2 * CELLS;      // band lanes a lane holds: two chunks of CELLS
+constexpr int BAND_TW = 32 * BAND_CPL;   // band lanes a tile
+// A banded window's shared memory besides its read: the NW's ring of band
+// rows, then the traceback's table, the add's stage, the sort's working
+// set or the consensus scores (window_paths). Two rows of the widest
+// adaptive band: R = 8 rows at band 256 (1,056 bytes a row), 4 at 512, 2
+// from 640 to 1536. Four blocks of four windows fit an SM. (Five, with 10
+// KB a window and at most 102 registers a thread, ran the covid file
+// slower: 2,640 windows in flight, each row a third slower.)
+constexpr int BAND_REGION = 2 * (MAX_BAND + PAD) * 4;
+// At least BAND_MIN_BLOCKS blocks of WIN_WARPS warps per SM (at most 128
+// registers a thread) for the consensus, one fewer for the MSA, as the full
+// band.
+constexpr int BAND_MIN_BLOCKS = 4;
+
+// Rows of the ring a pass of band rows of W ints gets: the most of 8, 4, 2
+// that fit BAND_REGION, else none (every predecessor row from the slab).
+__device__ __forceinline__ int band_ring_rows(int W) {
+  for (int r = RING_MAX; r >= 2; r >>= 1)
+    if (r * W * 4 <= BAND_REGION) return r;
+  return 0;
+}
+
+// A banded window's shared memory: the region, then its read (and 4 bytes
+// past it, which the NW's word loads may touch).
+__host__ __device__ inline size_t banded_warp_bytes(int L) {
+  return size_t(BAND_REGION) + (size_t(L) + 4 + 15) / 16 * 16;
+}
+
+// Per-row metadata of the banded NW (base | sink << 8 | npred << 16) and
+// the predecessor rows (a source's is the virtual row 0), for the graph of
+// nc nodes in sorted order, by the warp.
+__device__ void banded_rows(const Win& w, int nc) {
+  const int lane = threadIdx.x & 31;
+  const int E = w.E;
+  for (int r = lane; r < nc; r += 32) {
+    const int nid = w.sorted[r];
+    const int pc = w.in_count[nid];
+    w.meta[r] = (w.nodes[nid] & 0xff) | ((w.out_count[nid] == 0) << 8) | (max(pc, 1) << 16);
+    int* rp = w.rpred + size_t(r) * E;
+    if (pc == 0) rp[0] = 0;
+    for (int e = 0; e < pc; ++e) rp[e] = w.pos_of[w.in_edges[size_t(nid) * E + e]] + 1;
+  }
+  __syncwarp();
+}
+
+// One banded NW pass (nw_align_banded :69-193) of the read in s_read
+// (length rl) against the graph of nc nodes, by the warp: band rows 0..nc
+// of W = b.W ints into the slab, each also into a ring of R rows (ring
+// slot g & (R - 1), row stride W) from which rows at distance d < R are
+// read. Lane l holds band lanes l * 8 .. l * 8 + 7 of each tile of 256:
+// chunks of CELLS lanes whose predecessor reads are guarded one chunk at a
+// time, as the reference's threads are.
+__device__ void nw_banded_warp(const Win& w, const Band& b, const uint8_t* s_read, int rl,
+                               int nc, int gap, int mismatch, int match, int* ring, int R) {
+  const int lane = threadIdx.x & 31;
+  const int E = w.E, W = b.W, bw = b.bw;
+  int* const scores = w.scores;
+  for (int k = lane; k <= bw; k += 32) {  // row 0: band start 0
+    scores[SLOT0 + k] = k * gap;
+    if (R) ring[SLOT0 + k] = k * gap;
+  }
+  __syncwarp();
+  // each row's metadata and first two predecessor rows, lane l holding row
+  // r0 + l's, loaded 32 rows ahead of their use (the loads' latency is
+  // about a row's time); a longer list is read where a row needs it
+  int cm, c0, c1, nm, n0, n1;
+  auto chunk = [&](int r0, int& m, int& p0, int& p1) {
+    const int r = r0 + lane;
+    m = r < nc ? w.meta[r] : 0;
+    p0 = r < nc ? w.rpred[size_t(r) * E] : 0;
+    p1 = r < nc && E > 1 ? w.rpred[size_t(r) * E + 1] : 0;
+  };
+  chunk(0, cm, c0, c1);
+  chunk(32, nm, n0, n1);
+  SEG_INIT();
+  for (int r = 0; r < nc; ++r) {
+    SEG_T0();
+    const int g = r + 1;
+    if ((r & 31) == 0 && r) {
+      cm = nm;
+      c0 = n0;
+      c1 = n1;
+      chunk(r + 32, nm, n0, n1);
+    }
+    const int meta = __shfl_sync(FULL, cm, r & 31);
+    const int p0 = __shfl_sync(FULL, c0, r & 31), p1 = __shfl_sync(FULL, c1, r & 31);
+    const int nb = meta & 0xff, np = meta >> 16;
+    const int* rp = w.rpred + size_t(r) * E;
+    // slot `lane` of the predecessor list, for rows of more than two
+    const int mypred = np > 2 && lane < np ? rp[lane] : 0;
+    auto pred = [&](int e) {  // e uniform
+      return e == 0 ? p0 : (e == 1 ? p1 : (e < 32 ? __shfl_sync(FULL, mypred, e) : rp[e]));
+    };
+    // predecessor row pi: in the ring at distance d < R, else in the slab;
+    // either holds slot s at int SLOT0 + s
+    auto in_ring = [&](int pi) { return g - pi < R; };
+    auto row_of = [&](int pi) -> const int* {
+      return (in_ring(pi) ? ring + (pi & (R - 1)) * W : scores + size_t(pi) * W) + SLOT0;
+    };
+    const int bs = band_start(g, b);
+    // the column -1 boundary (:147-161)
+    int fe;
+    if (p0 == 0) {
+      fe = gap;  // a source row
+    } else if (bs > CELLS && np == 1) {
+      fe = MIN_SCORE + gap;
+    } else {
+      int pen = MIN_SCORE;
+      for (int e0 = 0; e0 < np; e0 += 32) {
+        const int e = e0 + lane;
+        const int pi = e == 0 ? p0 : (e == 1 ? p1 : (e < 32 ? mypred : rp[min(e, np - 1)]));
+        const int v = e < np ? row_of(pi)[0] : MIN_SCORE;
+        pen = max(pen, __reduce_max_sync(FULL, v));
+      }
+      fe = pen + gap;
+    }
+    int* const slab_row = scores + size_t(g) * W + SLOT0;
+    int* const ring_row = ring + (g & (R - 1)) * W + SLOT0;
+    if (lane == 0) {
+      slab_row[0] = fe;
+      if (R) ring_row[0] = fe;
+    }
+    int carry = fe + gap;  // seeds the closure: v[-1] = fe
+    SEG(0);
+    for (int t0 = 0; t0 < bw; t0 += BAND_TW) {
+      const int k0 = t0 + lane * BAND_CPL;  // this lane's two chunks: k0, k0 + 4
+      const int rpos = bs + k0;
+      const bool live = k0 < bw, live_b = k0 + CELLS < bw;
+      // the read's bases at rpos.. (a word of 4 at a time, rpos a multiple
+      // of 4; the read's buffer has 4 bytes past L) against the row's base
+      uint32_t eq[2] = {0, 0};
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (rpos + CELLS * h < rl)
+          eq[h] = __vcmpeq4(*reinterpret_cast<const uint32_t*>(s_read + rpos + CELLS * h),
+                            0x01010101u * uint32_t(nb));
+      int sub[BAND_CPL], cand[BAND_CPL];
+#pragma unroll
+      for (int c = 0; c < BAND_CPL; ++c) {
+        const bool same = rpos + c < rl && ((eq[c / CELLS] >> (8 * (c % CELLS))) & 1);
+        sub[c] = same ? match : mismatch;
+        cand[c] = MIN_SCORE;
+      }
+      for (int e = 0; e < np; ++e) {
+        const int pi = pred(e);
+        if (!live) continue;
+        const int pbs = row_start(pi, b);
+        const int pbe = min(pbs + bw - CELLS, b.max_column);
+        // a chunk reads its predecessor's 5 values only when its start lies
+        // in [pbs, pbe]; else all 5 read MIN_SCORE (the 5th is the next
+        // chunk's first: the two guards are separate)
+        const bool ga = rpos >= pbs && rpos <= pbe;
+        const bool gb = live_b && rpos + CELLS >= pbs && rpos + CELLS <= pbe;
+        // slots s .. s + 8 (s = rpos - pbs, a multiple of 4): slot s alone,
+        // then s + 1 .. s + 4 and s + 5 .. s + 8, 16 bytes a load (16-aligned
+        // at SLOT0 = 3)
+        const int* src = row_of(pi) + (rpos - pbs);
+        int v[BAND_CPL + 1];
+#pragma unroll
+        for (int c = 0; c <= BAND_CPL; ++c) v[c] = MIN_SCORE;
+        if (ga) v[0] = src[0];
+        if (ga || gb) {
+          const int4 x = *reinterpret_cast<const int4*>(src + 1);
+          v[1] = x.x;
+          v[2] = x.y;
+          v[3] = x.z;
+          v[4] = x.w;
+        }
+        if (gb) {
+          const int4 x = *reinterpret_cast<const int4*>(src + 1 + CELLS);
+          v[5] = x.x;
+          v[6] = x.y;
+          v[7] = x.z;
+          v[8] = x.w;
+        }
+        // each chunk's 5 values read MIN_SCORE unless its own guard holds
+        // (slots s + 1 .. s + 4 were loaded for either chunk)
+#pragma unroll
+        for (int c = 0; c < CELLS; ++c) {
+          const int d = ga ? v[c] : MIN_SCORE, u = ga ? v[c + 1] : MIN_SCORE;
+          cand[c] = max(cand[c], max(d + sub[c], u + gap));
+        }
+        if (live_b) {
+          const int vb4 = gb ? v[4] : MIN_SCORE;
+#pragma unroll
+          for (int c = CELLS; c < BAND_CPL; ++c)
+            cand[c] = max(cand[c], max((c == CELLS ? vb4 : v[c]) + sub[c], v[c + 1] + gap));
+        }
+      }
+      SEG(1);
+      // closure: v[k] = k*gap + max(fe + gap, max_{m<=k}(cand[m] - m*gap))
+      int pm[BAND_CPL], run = NEG_ID;
+#pragma unroll
+      for (int c = 0; c < BAND_CPL; ++c) {
+        const int k = k0 + c;
+        if (k < bw) run = max(run, cand[c] - k * gap);
+        pm[c] = run;
+      }
+      const int incl = warp_incl_max(run);
+      const int excl = __shfl_up_sync(FULL, incl, 1);
+      const int pre = lane ? max(carry, excl) : carry;
+      int o[BAND_CPL];
+#pragma unroll
+      for (int c = 0; c < BAND_CPL; ++c) o[c] = max(pre, pm[c]) + (k0 + c) * gap;
+      // slots 1 + k0 .. to the slab and the ring, 16 bytes a store
+      const int4 oa = make_int4(o[0], o[1], o[2], o[3]), ob = make_int4(o[4], o[5], o[6], o[7]);
+      if (live) {
+        *reinterpret_cast<int4*>(slab_row + 1 + k0) = oa;
+        if (R) *reinterpret_cast<int4*>(ring_row + 1 + k0) = oa;
+      }
+      if (live_b) {
+        *reinterpret_cast<int4*>(slab_row + 1 + k0 + CELLS) = ob;
+        if (R) *reinterpret_cast<int4*>(ring_row + 1 + k0 + CELLS) = ob;
+      }
+      carry = max(carry, __shfl_sync(FULL, incl, 31));
+      SEG(2);
+    }
+    __syncwarp();  // the row is written
+    SEG(3);
+  }
+  SEG_FLUSH();
+  __syncwarp();  // the slab's rows are visible to every lane
+}
+
+// The traceback's start (banded.py :196-203): the first sink row with the
+// strictly highest score at column rl above MIN_SCORE, else 0. By the warp,
+// one row a lane.
+__device__ int banded_best_row(const Win& w, const Band& b, int rl, int nc) {
+  const int lane = threadIdx.x & 31;
+  int best = MIN_SCORE, at = 0;  // this lane's first strict maximum
+  for (int idx = 1 + lane; idx <= nc; idx += 32) {
+    if ((w.meta[idx - 1] >> 8) & 1) {
+      const int s = get_score(w, b, idx, rl);
+      if (best < s) {
+        best = s;
+        at = idx;
+      }
+    }
+  }
+  const int m = __reduce_max_sync(FULL, best);
+  if (m == MIN_SCORE) return 0;
+  return int(__reduce_min_sync(FULL, best == m ? unsigned(at) : 0xffffffffu));
+}
+
+// The banded modes, one warp per window, wpb windows a block: BAND 1
+// static, 2 adaptive; OUT 0 consensus (cons, cov, len, err in o0..o3), 1
+// MSA (rows (B, S, N) uint8, msa_len, err in o0..o2). caps (B,): each
+// window's node cap; the slab is sized for N.
 template <int BAND, int OUT>
-__global__ void POA_LAUNCH_BOUNDS
-poa_consensus_kernel(const uint8_t* __restrict__ seqs, const int* __restrict__ wts,
-                     const int* __restrict__ lens, const int* __restrict__ nseqs,
-                     const int* __restrict__ caps, void* o0, void* o1, void* o2, void* o3,
-                     uint8_t* __restrict__ scratch, long long slab_bytes, int w0, int S, int L,
-                     int N, int E, int A, int gap, int mismatch, int match, int band_width) {
-  extern __shared__ uint8_t s_read[];
-  __shared__ int s_wtot[NWARP];
-  __shared__ int s_best, s_err, s_nc;
+__global__ void __launch_bounds__(WIN_WARPS * 32, OUT == 0 ? BAND_MIN_BLOCKS
+                                                           : BAND_MIN_BLOCKS - 1)
+poa_banded_kernel(const uint8_t* __restrict__ seqs, const int* __restrict__ wts,
+                  const int* __restrict__ lens, const int* __restrict__ nseqs,
+                  const int* __restrict__ caps, void* o0, void* o1, void* o2, void* o3,
+                  uint8_t* __restrict__ scratch, long long slab_bytes, int w0, int nwin, int wpb,
+                  int S, int L, int N, int E, int A, int gap, int mismatch, int match,
+                  int band_width) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int i = blockIdx.x * wpb + warp;
+  if (i >= nwin) return;
+  const size_t b = size_t(w0) + i;
+  uint8_t* const mine = smem + size_t(warp) * banded_warp_bytes(L);
+  int* const region = reinterpret_cast<int*>(mine);
+  uint8_t* const s_read = mine + BAND_REGION;
+  __shared__ Win s_win[WIN_WARPS];
+  if (lane == 0) {
+    s_win[warp] = slab_win(scratch + size_t(i) * size_t(slab_bytes),
+                           Layout(N, L, E, A, BAND, OUT, S, band_alloc(BAND, band_width)), N,
+                           L, E, A, S, OUT == 1);
+    s_win[warp].N = caps[b];  // the window's own node cap
+  }
+  __syncwarp();
+  const Win& w = s_win[warp];
 
-  const int tid = threadIdx.x;
-  const size_t b = size_t(w0) + blockIdx.x;
-  const Layout lay(N, L, E, A, BAND, OUT, S, band_alloc(BAND, band_width));
-  Win w = slab_win(scratch + size_t(blockIdx.x) * size_t(slab_bytes), lay, N, L, E, A, S, true,
-                   OUT == 1);
-  w.N = caps[b];  // the window's own node cap; the slab is sized for N
-
-  uint8_t* wcons = nullptr;
-  int* wcov = nullptr;
-  uint8_t* wmsa = nullptr;
+  for (int n = lane; n < N; n += 32) w.mark[n] = 0;  // reads are stamped 1..S-1
   if (OUT == 0) {
-    wcons = (uint8_t*)o0 + b * N;
-    wcov = (int*)o1 + b * N;
-    for (int n = tid; n < N; n += NT) {
-      wcons[n] = 0;
-      wcov[n] = 0;
-      w.mark[n] = 0;  // reads are stamped 1..S-1
+    for (int n = lane; n < N; n += 32) {
+      ((uint8_t*)o0)[b * N + n] = 0;
+      ((int*)o1)[b * N + n] = 0;
     }
   } else {
-    for (int n = tid; n < N; n += NT) w.mark[n] = 0;
+    for (size_t t = lane; t < size_t(S) * N; t += 32) ((uint8_t*)o0)[b * S * N + t] = '-';
+    for (size_t t = lane; t < size_t(N) * S; t += 32) w.seq_next[t] = -1;
+    for (int t = lane; t < S; t += 32) w.begin[t] = 0;
+    __syncwarp();  // before the backbone writes seq_next
   }
-  if (OUT == 1) {
-    wmsa = (uint8_t*)o0 + b * S * N;
-    for (size_t t = tid; t < size_t(S) * N; t += NT) wmsa[t] = '-';
-    for (size_t t = tid; t < size_t(N) * S; t += NT) w.seq_next[t] = -1;
-    for (int t = tid; t < S; t += NT) w.begin[t] = 0;
-    __syncthreads();  // before the backbone writes seq_next
-  }
-  const uint8_t* wseq = seqs + b * S * L;
-  const int* wwt = wts + b * S * L;
-  const int* wlen = lens + b * S;
-  const int ns = nseqs[b];
 
   // backbone (cudapoa_kernels.cuh:200-238); a window whose first read is
   // longer than its cap fails here (cpu_reference.build_backbone)
-  const int len0 = wlen[0];
+  const int len0 = lens[b * S];
   const bool fits = len0 <= w.N;
-  for (int i = tid; fits && i < len0; i += NT) {
-    w.nodes[i] = wseq[i];
-    w.sorted[i] = i;
-    w.pos_of[i] = i;
-    w.in_count[i] = i == 0 ? 0 : 1;
-    w.out_count[i] = i == len0 - 1 ? 0 : 1;
-    w.al_count[i] = 0;
-    w.cov[i] = 1;
-    w.in_edges[size_t(i) * E] = i - 1;
-    w.out_edges[size_t(i) * E] = i + 1;
-    w.in_w[size_t(i) * E] = i == 0 ? wwt[0] : wwt[i - 1] + wwt[i];
-    if (OUT == 1 && i < len0 - 1) w.seq_next[size_t(i) * S] = i + 1;
+  const int* wwt = wts + b * S * L;
+  for (int j = lane; fits && j < len0; j += 32) {
+    w.nodes[j] = seqs[b * S * L + j];
+    w.sorted[j] = j;
+    w.pos_of[j] = j;
+    w.in_count[j] = j == 0 ? 0 : 1;
+    w.out_count[j] = j == len0 - 1 ? 0 : 1;
+    w.al_count[j] = 0;
+    w.cov[j] = 1;
+    w.in_edges[size_t(j) * E] = j - 1;
+    w.out_edges[size_t(j) * E] = j + 1;
+    w.in_w[size_t(j) * E] = j == 0 ? wwt[0] : wwt[j - 1] + wwt[j];
+    if (OUT == 1 && j < len0 - 1) w.seq_next[size_t(j) * S] = j + 1;
   }
-  if (tid == 0) {
-    s_nc = fits ? len0 : 0;
-    s_err = fits ? 0 : 1;
-  }
-  __syncthreads();
-
+  __syncwarp();
+  const int ns = nseqs[b];
+  int nc = fits ? len0 : 0, err = fits ? 0 : 1;
+  PHASE_T0();
   for (int s = 1; fits && s < ns; ++s) {
-    if (s_nc >= w.N) {  // uniform: every thread reads the same shared value
-      if (tid == 0) s_err = 1;
+    if (nc >= w.N) {
+      err = 1;
       break;
     }
-    const int rl = wlen[s];
-    for (int j = tid; j < rl; j += NT) s_read[j] = wseq[size_t(s) * L + j];
-    __syncthreads();
-    const int aln_len = nw_banded<BAND>(w, s_read, rl, s_nc, gap, mismatch, match, band_width,
-                                        s_wtot, &s_best);
-    if (tid == 0) {
-      int err = aln_len < 0 ? 3 : 0;
-      int nc = s_nc;
-      if (!err)
-        err = add_alignment<true, OUT == 1>(w, aln_len, s_read, wwt + size_t(s) * L, &nc, s);
-      if (!err) err = topsort(w, nc);
-      s_nc = nc;
-      s_err = err;
+    const int rl = lens[b * S + s];
+    for (int j = lane; j < rl; j += 32) s_read[j] = seqs[(b * S + s) * L + j];
+    __syncwarp();
+    // nw_align_banded_with_rerun: a pass, and after a band-shift code one
+    // re-run with it; the alignment length or a negative code (status 3)
+    PHASE_MARK();
+    banded_rows(w, nc);
+    int aln_len = 0, rerun = 0;
+    for (int pass = 0; pass < 2; ++pass) {
+      Band bd;
+      if (!band_params(nc, rl, band_width, BAND == 2, rerun, &bd)) {
+        aln_len = rerun;
+        break;
+      }
+      nw_banded_warp(w, bd, s_read, rl, nc, gap, mismatch, match, region,
+                     band_ring_rows(bd.W));
+      PHASE_ADD(0);
+      PHASE_COUNT(6, nc);
+      // the traceback's table of each row's metadata and first predecessor
+      // in the region, where it fits (the ring is done with)
+      int2* const table = size_t(nc) * sizeof(int2) <= BAND_REGION
+                              ? reinterpret_cast<int2*>(region) : nullptr;
+      for (int r = lane; table && r < nc; r += 32)
+        table[r] = make_int2(w.meta[r], w.rpred[size_t(r) * E]);
+      __syncwarp();
+      const int i0 = banded_best_row(w, bd, rl, nc);
+      aln_len = traceback_banded(w, bd, s_read, rl, nc, i0, gap, mismatch, match,
+                                 BAND == 2 && rerun == 0 && bd.bw < MAX_BAND, table);
+      __syncwarp();  // the moves are visible, the region free
+      PHASE_ADD(1);
+      PHASE_COUNT(7, max(aln_len, 0));
+      if (aln_len != SHIFT_LEFT && aln_len != SHIFT_RIGHT) break;
+      rerun = aln_len;
     }
-    __syncthreads();  // also: thread 0 is done with s_read
-    if (s_err) break;
+    err = aln_len < 0 ? 3 : 0;
+    // the add's stage and its bits of landed nodes, then the sort's working
+    // set, in the region where they fit
+    const int paths = window_paths(BAND_REGION, w.N, nc);
+    if (!err)
+      err = add_walk<true, OUT == 1>(w, aln_len, s_read, wwt + size_t(s) * L, &nc, s,
+                                     paths & WIN_ADD_UNSTAGED ? nullptr
+                                                              : reinterpret_cast<AddStage*>(region),
+                                     reinterpret_cast<unsigned*>(region + sizeof(AddStage) / 4));
+    PHASE_ADD(2);
+    if (!err) {
+      if (window_paths(BAND_REGION, w.N, nc) & WIN_TOPSORT_SCALAR) {
+        if (lane == 0) err = topsort(w, nc);
+        __syncwarp();  // lane 0's order
+        err = __shfl_sync(FULL, err, 0);
+      } else {
+        err = topsort_cached(w, nc, reinterpret_cast<uint16_t*>(region));
+      }
+    }
+    PHASE_ADD(3);
+    __syncwarp();  // every lane is done with s_read and the region
+    if (err) break;
   }
-  if (tid == 0) {
-    int err = s_err;
-    if (OUT == 0) {
-      int length = 0;
-      if (!err) err = consensus(w, s_nc, wcons, wcov, &length);
+  PHASE_MARK();
+  if (OUT == 0) {
+    int length = 0;
+    if (!err)
+      err = consensus_warp(w, nc,
+                           window_paths(BAND_REGION, w.N, nc) & WIN_CSCORE_DEVICE ? w.cscore
+                                                                                   : region,
+                           (uint8_t*)o0 + b * N, (int*)o1 + b * N, &length);
+    if (lane == 0) {
       ((int*)o2)[b] = err ? 0 : length;
       ((int*)o3)[b] = err;
-    } else {
-      ((int*)o1)[b] = err ? 0 : msa_emit(w, s_nc, ns, N, wmsa);
-      ((int*)o2)[b] = err;
     }
+  } else if (lane == 0) {
+    ((int*)o1)[b] = err ? 0 : msa_emit(w, nc, ns, N, (uint8_t*)o0 + b * S * N);
+    ((int*)o2)[b] = err;
   }
+  PHASE_ADD(4);
+  PHASE_FLUSH();
+}
+
+// Windows a block of poa_banded_kernel<BAND, OUT> takes for reads up to L
+// bases (0 where one does not fit the card's shared memory), after setting
+// its dynamic shared memory to that many windows'.
+template <int BAND, int OUT>
+int banded_wpb(int L, cudaError_t* err) {
+  const size_t wb = banded_warp_bytes(L);
+  int dev = 0, limit = 0;
+  *err = cudaGetDevice(&dev);
+  if (*err == cudaSuccess)
+    *err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (*err != cudaSuccess) return 0;
+  if (wb > size_t(limit)) {
+    *err = cudaErrorInvalidValue;  // a read too long for a warp
+    return 0;
+  }
+  const int wpb = int(min(size_t(WIN_WARPS), size_t(limit) / wb));
+  *err = cudaFuncSetAttribute(poa_banded_kernel<BAND, OUT>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, int(wpb * wb));
+  return *err == cudaSuccess ? wpb : 0;
 }
 
 template <int BAND, int OUT>
@@ -1788,17 +1960,31 @@ int launch_banded(const void* seqs, const void* wts, const void* lens, const voi
                   const void* caps, void* o0, void* o1, void* o2, void* o3, void* scratch,
                   long long slab_bytes, int w0, int nwin, int S, int L, int N, int E, int A,
                   int gap, int mismatch, int match, int band_width, cudaStream_t stream) {
-  const size_t smem = align_up(size_t(L) > 0 ? size_t(L) : 1);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(poa_consensus_kernel<BAND, OUT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (e != cudaSuccess) return int(e);
-  }
-  poa_consensus_kernel<BAND, OUT><<<nwin, NT, smem, stream>>>(
+  cudaError_t e;
+  const int wpb = banded_wpb<BAND, OUT>(L, &e);
+  if (!wpb) return int(e);
+  poa_banded_kernel<BAND, OUT><<<(nwin + wpb - 1) / wpb, wpb * 32,
+                                 wpb * banded_warp_bytes(L), stream>>>(
       (const uint8_t*)seqs, (const int*)wts, (const int*)lens, (const int*)nseqs,
-      (const int*)caps, o0, o1, o2, o3, (uint8_t*)scratch, slab_bytes, w0, S, L, N, E, A, gap,
-      mismatch, match, band_width);
+      (const int*)caps, o0, o1, o2, o3, (uint8_t*)scratch, slab_bytes, w0, nwin, wpb, S, L, N,
+      E, A, gap, mismatch, match, band_width);
   return int(cudaGetLastError());
+}
+
+// Windows of reads up to L bases the card holds at once in
+// poa_banded_kernel<BAND, OUT> (0 where a read is too long).
+template <int BAND, int OUT>
+int banded_occupancy(int L) {
+  cudaError_t e;
+  const int wpb = banded_wpb<BAND, OUT>(L, &e);
+  int dev = 0, sms = 0, blocks = 0;
+  if (!wpb || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, poa_banded_kernel<BAND, OUT>,
+                                                    wpb * 32, wpb * banded_warp_bytes(L)) !=
+          cudaSuccess)
+    return 0;
+  return blocks * sms * wpb;
 }
 
 // The ring's rows a window of reads up to L bases gets: the most of 8, 4, 2
@@ -1910,6 +2096,19 @@ int poa_window_paths(int L, int N, int nc) {
   const int cpl = L + 1 <= 32 * 9 ? 9 : 11, R = ring_rows(L, cpl);
   return window_paths(size_t(R) * WarpSmem(L, cpl, R).RW * 4, N, nc);
 }
+
+// Windows poa_banded_kernel<band, out> (band 1 static, 2 adaptive; out 0
+// consensus, 1 MSA) holds on the card at once for reads up to L bases (0
+// if it cannot run them or the mode is unknown).
+int poa_banded_windows_in_flight(int band, int out, int L) {
+  if (band == 1) return out == 0 ? banded_occupancy<1, 0>(L) : banded_occupancy<1, 1>(L);
+  if (band == 2) return out == 0 ? banded_occupancy<2, 0>(L) : banded_occupancy<2, 1>(L);
+  return 0;
+}
+
+// The shared-memory paths (window_paths bits, as poa_window_paths) a banded
+// window with node cap N and nc nodes takes.
+int poa_banded_paths(int N, int nc) { return window_paths(BAND_REGION, N, nc); }
 
 // Bytes of one window's scratch slab (full-band consensus).
 long long poa_slab_bytes(int N, int L, int E, int A) {

@@ -14,8 +14,7 @@
 // The TPU ran one window per vector lane, 128 windows in lockstep, with the
 // graph as (N, 128) planes and every pointer chase a one-hot gather. Here
 // the graph state is the port's (B, N) layout in device memory, and a
-// window is one warp (NW, traceback, add, topsort) or one thread
-// (consensus):
+// window is one warp:
 // - NW (nw_lockstep): one warp per window, several windows a block. Its
 //   bound on this card is the bytes of the priority codes it writes (one a
 //   cell); what costs is the chain of rows in topological order, a few
@@ -62,10 +61,12 @@
 //     to enqueue.
 //   Shared memory: about 24 N bytes a window (ReadLayout), so 24 windows an
 //   SM at N = 384, the largest covid bucket in one wave.
-// - Consensus: one thread per window, 64 threads a block, so a bucket of
-//   thousands of windows spreads over the SMs: a chain of dependent loads
-//   (the heaviest path over the graph), bound by its latency; its time
-//   follows its longest window.
+// - Consensus (consensus_lockstep): one warp per window, several windows a
+//   block, the scores and predecessors in shared memory. A chain of
+//   dependent steps (the heaviest path, row by row in sorted order), bound
+//   by its latency: the lanes load each next 32 rows' in-counts and first
+//   in-edges ahead, so that a row of one or two in-edges (most rows) is
+//   lane 0's, from shared memory only; longer in-lists take the warp.
 //
 // Built with nvcc into a shared library with a plain C interface and loaded
 // with ctypes (genomeworks_tpu_torch/ops/_build.py).
@@ -962,121 +963,219 @@ lk_read_kernel(State st, int B, int wpb, int warp_bytes, const uint8_t* __restri
 }
 
 // ---------------------------------------------------------------------------
-// Consensus (row 5): one thread per window
+// Consensus (row 5): one warp per window
 // ---------------------------------------------------------------------------
 
-constexpr int WIN_NT = 64;
+constexpr int CONS_WARPS = 4;  // windows a block, at most
+constexpr int CONS_PRE = 2;    // in-edges of a node loaded ahead with it
+// blocks an SM the launch bound asks for: at most 64 registers a thread,
+// which ptxas then uses without spilling (it spilled at its own choice of 40)
+constexpr int CONS_MIN_BLOCKS = 8;
 
-// One row of the heaviest-edge pass with the reference's tie-breaks.
-__device__ void consensus_row(const Win& w, const int* cscore, int nid, bool skip_cleared,
-                              int* s_out, int* p_out) {
-  const int E = w.E;
-  const int pc = w.in_count[nid];
-  const int* il = w.in_edges + size_t(nid) * E;
-  const int* iw = w.in_w + size_t(nid) * E;
-  int s = skip_cleared ? -1 : cscore[nid];
-  int p = -1;
-  for (int e = 0; e < pc; ++e) {
-    const int begin = il[e];
-    const int sb = cscore[begin];
-    if (skip_cleared && sb == -1) continue;
-    const int ew = iw[e];
-    if (s < ew || (s == ew && p != -1 && cscore[p] <= sb)) {
-      s = ew;
-      p = begin;
+// A window's shared memory: the consensus scores and predecessors (N ints
+// each), and the stage of the next 32 sorted nodes: id, in-count and the
+// first CONS_PRE in-edges and weights.
+struct ConsStage {
+  int nid[32], pc[32], ie[CONS_PRE][32], iw[CONS_PRE][32];
+};
+__host__ __device__ inline size_t cons_warp_bytes(int N) {
+  return size_t(N) * 8 + sizeof(ConsStage);
+}
+
+// One row of the heaviest-edge pass by the warp, one lane per in-edge: the
+// twin of consensus_row_warp in poa_consensus.cu (the full band's, whose
+// comment gives the order it equals: the sequential scan's last edge of
+// the largest weight whose source scores highest). Returns (score,
+// predecessor).
+__device__ __forceinline__ int2 cons_row_warp(const Win& w, const int* cscore, int nid, int pc,
+                                              bool skip) {
+  const int lane = threadIdx.x & 31;
+  const int* il = w.in_edges + size_t(nid) * w.E;
+  const int* iw = w.in_w + size_t(nid) * w.E;
+  int s = skip ? -1 : cscore[nid];
+  int p = -1, sp = 0;
+  for (int e0 = 0; e0 < pc; e0 += 32) {
+    const int e = e0 + lane;
+    int ew = INT_MIN, sb = INT_MIN, begin = -1;
+    if (e < pc) {
+      begin = il[e];
+      sb = cscore[begin];
+      ew = iw[e];
+      if (skip && sb == -1) ew = INT_MIN;
+    }
+    const int m = __reduce_max_sync(FULL, ew);
+    if (m == INT_MIN) continue;  // no edge of this chunk counts
+    const bool tie = ew == m;
+    const int sbm = __reduce_max_sync(FULL, tie ? sb : INT_MIN);
+    const unsigned at = __ballot_sync(FULL, tie && sb == sbm);
+    const int pick = __shfl_sync(FULL, begin, 31 - __clz(at));
+    if (m > s || (m == s && p != -1 && sp <= sbm)) {
+      s = m;
+      p = pick;
+      sp = sbm;
     }
   }
-  if (p != -1) s += cscore[p];
-  *s_out = s;
-  *p_out = p;
+  if (p != -1) s += sp;
+  return make_int2(s, p);
+}
+
+// Rows from sorted position `from` on, in order, by the warp (the
+// kernel's first pass and each branch completion's); returns (in every
+// lane) the best, the last at the highest score, from (mx_s, 0).
+__device__ __forceinline__ int cons_pass(const Win& w, ConsStage* stage, int* cscore, int* cpred,
+                                         int nc, int from, bool skip, int mx_s) {
+  const int lane = threadIdx.x & 31;
+  const int E = w.E;
+  int mx_i = 0;
+  for (int g0 = from; g0 < nc; g0 += 32) {
+    __syncwarp();  // lane 0 is done with the stage; its scores are visible
+    if (g0 + lane < nc) {
+      const int nid = w.sorted[g0 + lane];
+      stage->nid[lane] = nid;
+      stage->pc[lane] = w.in_count[nid];
+#pragma unroll
+      for (int e = 0; e < CONS_PRE; ++e) {
+        if (e < E) {
+          stage->ie[e][lane] = w.in_edges[size_t(nid) * E + e];
+          stage->iw[e][lane] = w.in_w[size_t(nid) * E + e];
+        }
+      }
+    }
+    __syncwarp();
+    for (int q = 0; q < 32 && g0 + q < nc; ++q) {
+      const int pc = stage->pc[q], nid = stage->nid[q];
+      int s, p;
+      if (pc <= CONS_PRE) {
+        if (lane != 0) continue;
+        s = skip ? -1 : cscore[nid];
+        p = -1;
+        int sp = 0;
+#pragma unroll
+        for (int e = 0; e < CONS_PRE; ++e) {
+          if (e < pc) {
+            const int begin = stage->ie[e][q], ew = stage->iw[e][q];
+            const int sb = cscore[begin];
+            if (skip && sb == -1) continue;
+            if (s < ew || (s == ew && p != -1 && sp <= sb)) {
+              s = ew;
+              p = begin;
+              sp = sb;
+            }
+          }
+        }
+        if (p != -1) s += sp;
+      } else {
+        __syncwarp();  // lane 0's scores are visible
+        const int2 sp = cons_row_warp(w, cscore, nid, pc, skip);
+        s = sp.x;
+        p = sp.y;
+        __syncwarp();  // every lane has read the scores
+        if (lane != 0) continue;
+      }
+      cscore[nid] = s;
+      cpred[nid] = p;
+      if (mx_s <= s) {
+        mx_s = s;
+        mx_i = nid;
+      }
+    }
+  }
+  __syncwarp();  // lane 0's scores are visible
+  return __shfl_sync(FULL, mx_i, 0);
 }
 
 // Heaviest path, branch completion and backward emission
-// (cudapoa_generate_consensus.cuh); cons and cov are zeroed by the wrapper.
-__global__ void __launch_bounds__(WIN_NT)
-lk_consensus_kernel(State st, int B, const bool* __restrict__ act, uint8_t* __restrict__ cons,
-                    int* __restrict__ cov_out, int* __restrict__ len_out,
-                    int* __restrict__ err_out, int* __restrict__ scratch) {
-  const int b = blockIdx.x * WIN_NT + threadIdx.x;
+// (cudapoa_generate_consensus.cuh, lockstep_plain.consensus_lockstep_plain)
+// a warp per window, several windows a block; cons and cov are zeroed by
+// the wrapper. The scores and predecessors live in shared memory. The rows
+// run in sorted order: the lanes load the next 32 nodes' in-counts and
+// first in-edges and weights at once (independent loads, off the chain),
+// lane 0 runs a row of at most CONS_PRE in-edges from them and shared
+// memory alone (consensus_row's scan, so its tie-breaks), and a longer
+// in-list takes the warp, a lane per in-edge. Branch completion clears a
+// lane per in-edge; the emission walks cpred on lane 0 into a node list,
+// then the lanes write the bases and coverages.
+__global__ void __launch_bounds__(CONS_WARPS * 32, CONS_MIN_BLOCKS)
+lk_consensus_kernel(State st, int B, int wpb, const bool* __restrict__ act,
+                    uint8_t* __restrict__ cons, int* __restrict__ cov_out,
+                    int* __restrict__ len_out, int* __restrict__ err_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * wpb + warp;
   if (b >= B) return;
   if (!act[b] || st.error[b] != 0) {
-    len_out[b] = 0;
-    err_out[b] = st.error[b];
+    if (lane == 0) {
+      len_out[b] = 0;
+      err_out[b] = st.error[b];
+    }
     return;
   }
   const Win w(st, b);
   const int N = w.N, E = w.E, A = w.A, nc = st.node_count[b];
-  int* cscore = scratch + size_t(b) * 2 * N;
-  int* cpred = cscore + N;
-  for (int n = 0; n < nc; ++n) {
+  ConsStage* const stage = reinterpret_cast<ConsStage*>(smem + size_t(warp) * cons_warp_bytes(N));
+  int* const cscore = reinterpret_cast<int*>(stage + 1);
+  int* const cpred = cscore + N;
+  for (int n = lane; n < nc; n += 32) {
     cscore[n] = -1;
     cpred[n] = -1;
   }
-  int max_score = -1, max_id = 0;
-  for (int gp = 0; gp < nc; ++gp) {
-    const int nid = w.sorted[gp];
-    int s, p;
-    consensus_row(w, cscore, nid, false, &s, &p);
-    cscore[nid] = s;
-    cpred[nid] = p;
-    if (max_score <= s) {
-      max_score = s;
-      max_id = nid;
-    }
-  }
+  int max_id = cons_pass(w, stage, cscore, cpred, nc, 0, false, -1);
   int loops = 0;
   while (w.out_count[max_id] != 0 && loops < nc) {
     const int pos = w.pos_of[max_id];
     const int oc = w.out_count[max_id];
-    for (int oe = 0; oe < oc; ++oe) {
-      const int out = w.out_edges[size_t(max_id) * E + oe];
-      const int ic = w.in_count[out];
-      for (int ie = 0; ie < ic; ++ie) {
-        const int iid = w.in_edges[size_t(out) * E + ie];
-        if (iid != max_id) cscore[iid] = -1;
+    for (int o0 = 0; o0 < oc; o0 += 32) {
+      int out = 0, ic = 0;
+      if (o0 + lane < oc) {
+        out = w.out_edges[size_t(max_id) * E + o0 + lane];
+        ic = w.in_count[out];
+      }
+      for (int q = 0; q < 32 && o0 + q < oc; ++q) {
+        const int o = __shfl_sync(FULL, out, q), c = __shfl_sync(FULL, ic, q);
+        for (int ie = lane; ie < c; ie += 32) {
+          const int iid = w.in_edges[size_t(o) * E + ie];
+          if (iid != max_id) cscore[iid] = -1;
+        }
       }
     }
-    int mxs = 0, mxi = 0;
-    for (int gp = pos + 1; gp < nc; ++gp) {
-      const int nid = w.sorted[gp];
-      int s, p;
-      consensus_row(w, cscore, nid, true, &s, &p);
-      cpred[nid] = p;
-      cscore[nid] = s;
-      if (mxs <= s) {
-        mxs = s;
-        mxi = nid;
-      }
-    }
-    max_id = mxi;
+    max_id = cons_pass(w, stage, cscore, cpred, nc, pos + 1, true, 0);
     ++loops;
   }
   if (loops >= nc && loops > 0) {
-    len_out[b] = 0;
-    err_out[b] = 3;
+    if (lane == 0) {
+      len_out[b] = 0;
+      err_out[b] = 3;
+    }
     return;
   }
-  uint8_t* wcons = cons + size_t(b) * N;
-  int* wcov = cov_out + size_t(b) * N;
-  int cur = max_id, k = 0;
-  while (true) {
-    int c = w.cov[cur];
-    const int nal = w.al_count[cur];
-    for (int a = 0; a < nal; ++a) c += w.cov[w.al[size_t(cur) * A + a]];
-    if (k < N) {
-      wcons[k] = uint8_t(w.nodes[cur]);
-      wcov[k] = c;
+  // the path, backward from max_id, into a node list over the scores
+  int* const path = cscore;
+  int k = 0;
+  if (lane == 0) {
+    int cur = max_id;
+    while (true) {
+      if (k < N) path[k] = cur;
+      ++k;  // counts on past N, as the plain version's length does
+      const int p = cpred[cur];
+      if (p == -1) break;
+      cur = p;
     }
-    ++k;
-    const int p = cpred[cur];
-    if (p == -1) break;
-    cur = p;
+    len_out[b] = k;
+    err_out[b] = 0;
   }
-  len_out[b] = k;
-  err_out[b] = 0;
+  k = __shfl_sync(FULL, k, 0);
+  __syncwarp();  // the list is visible
+  uint8_t* const wcons = cons + size_t(b) * N;
+  int* const wcov = cov_out + size_t(b) * N;
+  for (int t = lane; t < min(k, N); t += 32) {
+    const int nid = path[t];
+    int c = w.cov[nid];
+    const int nal = w.al_count[nid];
+    for (int a = 0; a < nal; ++a) c += w.cov[w.al[size_t(nid) * A + a]];
+    wcons[t] = uint8_t(w.nodes[nid]);
+    wcov[t] = c;
+  }
 }
-
-inline int win_blocks(int B) { return (B + WIN_NT - 1) / WIN_NT; }
 
 // Windows a block of ``max_warps`` warps of ``warp_bytes`` shared memory
 // each can hold within the card's opt-in limit (0: not one), after setting
@@ -1229,13 +1328,33 @@ int lk_read_stats(unsigned long long* out, int reset) {
 #endif
 }
 
+// The consensus of each active window without an error; cons and cov
+// zeroed by the caller.
 int lk_consensus_launch(void* const* st, int B, int N, int E, int A, const void* act,
-                        void* cons, void* cov, void* len, void* err, void* scratch,
-                        void* stream) {
-  lk_consensus_kernel<<<win_blocks(B), WIN_NT, 0, (cudaStream_t)stream>>>(
-      make_state(st, N, E, A), B, (const bool*)act, (uint8_t*)cons, (int*)cov, (int*)len,
-      (int*)err, (int*)scratch);
+                        void* cons, void* cov, void* len, void* err, void* stream) {
+  cudaError_t e;
+  const size_t wb = cons_warp_bytes(N);
+  const int wpb = warps_per_block(lk_consensus_kernel, wb, CONS_WARPS, &e);
+  if (!wpb) return int(e);
+  lk_consensus_kernel<<<(B + wpb - 1) / wpb, wpb * 32, wpb * wb, (cudaStream_t)stream>>>(
+      make_state(st, N, E, A), B, wpb, (const bool*)act, (uint8_t*)cons, (int*)cov, (int*)len,
+      (int*)err);
   return int(cudaGetLastError());
+}
+
+// Windows lk_consensus_kernel holds on the card at once for a node cap of N
+// (0 on an error).
+int lk_consensus_windows_in_flight(int N) {
+  cudaError_t e;
+  const size_t wb = cons_warp_bytes(N);
+  const int wpb = warps_per_block(lk_consensus_kernel, wb, CONS_WARPS, &e);
+  int dev = 0, sms = 0, blocks = 0;
+  if (!wpb || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, lk_consensus_kernel, wpb * 32,
+                                                    wpb * wb) != cudaSuccess)
+    return 0;
+  return blocks * wpb * sms;
 }
 
 }  // extern "C"

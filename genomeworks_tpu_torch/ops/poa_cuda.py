@@ -1,8 +1,8 @@
 """CUDA kernels for the full POA chain of each window — the counterpart of
 genomeworks_tpu/ops/poa_pallas.py (``poa_consensus_pallas``) in all its
-modes: full band (one warp per window), static band and adaptive band (one
-thread block per window), each with consensus or MSA output, and the
-full-band graph export behind ``PoaBatch.get_graphs``.
+modes: full band, static band and adaptive band, each with consensus or MSA
+output, and the full-band graph export behind ``PoaBatch.get_graphs``; every
+mode runs a warp per window.
 
 The kernel source is ``csrc/poa_consensus.cu``, a template per kernel
 instantiated per mode. Its plain PyTorch versions are
@@ -70,6 +70,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.poa_window_ring_rows.restype = ctypes.c_int
     lib.poa_window_paths.argtypes = [ctypes.c_int] * 3
     lib.poa_window_paths.restype = ctypes.c_int
+    lib.poa_banded_windows_in_flight.argtypes = [ctypes.c_int] * 3
+    lib.poa_banded_windows_in_flight.restype = ctypes.c_int
+    lib.poa_banded_paths.argtypes = [ctypes.c_int] * 2
+    lib.poa_banded_paths.restype = ctypes.c_int
     return lib
 
 

@@ -35,6 +35,9 @@ MAX_EDGES = 84
 PH_TB, PH_ADD, PH_SORT, PH_ALL = 1, 2, 4, 7
 #: lk_read_kernel keeps node ids and positions in 16 bits
 MAX_READ_NODES = 32767
+#: lk_consensus_kernel keeps a window's scores and predecessors (8 N bytes)
+#: in shared memory, within the 227 KB a block may have
+MAX_CONSENSUS_NODES = 28672
 
 _lib = None
 
@@ -46,12 +49,13 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     for name, rest in (
         ("lk_nw_launch", [P, I, P, P, P, I, P, P, I, I, I, I, P]),
         ("lk_read_launch", [I, P, I, P, P, P, P, P, P, I, P, P, I, P]),
-        ("lk_consensus_launch", [P, P, P, P, P, P, P]),
+        ("lk_consensus_launch", [P, P, P, P, P, P]),
     ):
         fn = getattr(lib, name)
         fn.argtypes = st + rest
         fn.restype = ctypes.c_int
     for name, args in (("lk_nw_ring_width", [I]), ("lk_read_windows_in_flight", [I] * 4),
+                       ("lk_consensus_windows_in_flight", [I]),
                        ("lk_read_stats", [ctypes.POINTER(ctypes.c_ulonglong), I])):
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = ctypes.c_int
@@ -249,20 +253,29 @@ def read_windows_in_flight(phases: int, N: int, E: int, K: int) -> int:
     return load_library().lk_read_windows_in_flight(phases, N, E, K)
 
 
+def consensus_windows_in_flight(N: int) -> int:
+    """Windows of ``lk_consensus_kernel`` the card holds at once for a node
+    cap of N (needs the card)."""
+    return load_library().lk_consensus_windows_in_flight(N)
+
+
 def consensus_lockstep(state, act):
     """(cons (B, N) uint8 backward, cov (B, N) int32, length (B,), err (B,))
-    (``lockstep_plain.consensus_lockstep_plain``)."""
+    (``lockstep_plain.consensus_lockstep_plain``). On CUDA a warp per
+    window, its scores in shared memory: N up to MAX_CONSENSUS_NODES."""
     B, N, E, A, dev = _check_state(state, act)
     if dev.type == "cpu":
         return plain.consensus_lockstep_plain(state, act)
+    if N > MAX_CONSENSUS_NODES:
+        raise ValueError(f"lk_consensus_kernel takes at most {MAX_CONSENSUS_NODES} nodes, "
+                         f"got N={N}")
     cons = torch.zeros((B, N), dtype=torch.uint8, device=dev)
     cov = torch.zeros((B, N), dtype=torch.int32, device=dev)
     length = torch.empty(B, dtype=torch.int32, device=dev)
     err = torch.empty(B, dtype=torch.int32, device=dev)
-    scratch = torch.empty((B, 2, N), dtype=torch.int32, device=dev)
     rc = load_library().lk_consensus_launch(
         _ptrs(state), B, N, E, A, act.data_ptr(), cons.data_ptr(), cov.data_ptr(),
-        length.data_ptr(), err.data_ptr(), scratch.data_ptr(), _stream(dev))
+        length.data_ptr(), err.data_ptr(), _stream(dev))
     _raise_on(rc, "lk_consensus_kernel")
     consensus_lockstep.launches += 1
     return cons, cov, length, err

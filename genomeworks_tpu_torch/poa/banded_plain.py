@@ -100,7 +100,12 @@ def nw_banded(state, read, read_len, active, gap: int, mismatch: int, match: int
     gives it; ``code`` is 0, SHIFT_LEFT / SHIFT_RIGHT (rules 7-8 fired), a
     re-run's own code (its band reached 1536) or LOOP_FAILED. ``work``
     accumulates the band cells the pass computes (``cells``, graph rows x
-    band lanes) and ``pred_cells`` (the same, once per predecessor row)."""
+    band lanes) and ``pred_cells`` (the same, once per predecessor row),
+    and what the pass met: ``band_widths`` (the set of its windows' bands),
+    ``guard_other_start`` (chunks of 4 lanes inside the band whose guard
+    failed on a predecessor row with another band start), ``shift_left``
+    and ``shift_right`` (windows whose rules 7 or 8 fired) and ``moves``
+    (the moves of the walks that ended, code 0)."""
     st = state
     B, N = st["nodes"].shape
     L = read.shape[1]
@@ -125,6 +130,7 @@ def nw_banded(state, read, read_len, active, gap: int, mismatch: int, match: int
         npred = torch.where(in_graph, st["in_count"].clamp(min=1), 0).sum(dim=1)
         work["cells"] = work.get("cells", 0) + int((nc.to(torch.int64) * lanes).sum())
         work["pred_cells"] = work.get("pred_cells", 0) + int((npred * lanes).sum())
+        work["band_widths"] = work.get("band_widths", set()) | set(bw[run].tolist())
 
     lane = torch.arange(max(BW, 1), device=dev, dtype=i32)[None, :]
     slot = torch.arange(W, device=dev, dtype=i32)
@@ -177,6 +183,11 @@ def nw_banded(state, read, read_len, active, gap: int, mismatch: int, match: int
         pbe = torch.minimum(pbs + bw[:, None, None] - CELLS_PER_THREAD,
                             max_column[:, None, None])
         guard = use[:, :, None] & (rp <= pbe) & (rp >= pbs)
+        if work is not None:
+            other = use[:, :, None] & ~guard & (pbs != bs[:, None, None]) & \
+                (lane % CELLS_PER_THREAD == 0) & (lane < bw[:, None])[:, None, :]
+            work["guard_other_start"] = work.get("guard_other_start", 0) + int(
+                (other & ract[:, None, None]).sum())
         sd = (bs[:, None, None] + lane[:, None, :] - pbs).clamp(0, W - 2).long()
         prow = scores[bb, ppos]  # (B, emax, W)
         vd = torch.where(guard, prow.gather(2, sd), MIN_SCORE)
@@ -255,6 +266,10 @@ def nw_banded(state, read, read_len, active, gap: int, mismatch: int, match: int
         j = torch.where(live, prev_j, j)
         k = k + live.to(i32)
     code = torch.where(run & (code == 0) & (loops >= cap), LOOP_FAILED, code)
+    if work is not None:
+        for key, c in (("shift_left", SHIFT_LEFT), ("shift_right", SHIFT_RIGHT)):
+            work[key] = work.get(key, 0) + int((run & (code == c)).sum())
+        work["moves"] = work.get("moves", 0) + int(torch.where(run & (code == 0), k, 0).sum())
     return ag, ar, k, code
 
 

@@ -130,6 +130,52 @@ def test_banded_and_msa_modes_match_plain_on_gpu(band_width, adaptive, msa):
     assert 0 in out[-1].tolist()
 
 
+BAND_EDGE_SETS = ["lane-edge", "tile-edge", "two-tiles", "shift", "wide", "caps"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("output", ["consensus", "msa"])
+@pytest.mark.parametrize("case", BAND_EDGE_SETS)
+def test_banded_edge_sets_match_plain_on_gpu(case, output):
+    """The banded kernel (a warp per window) in each of its instantiations
+    against its plain version on the edge sets of its warp layout
+    (``chip_smoke.band_edge_sets``): bands of 252 and 260 (a lane's last
+    chunk alone, a partial second tile) and 512 (two tiles), chunks whose
+    guard fails on a predecessor row with another band start, reads that
+    leave an adaptive band (rules 7 and 8, the re-run), adaptive bands of
+    384 and 1536 lanes, node caps too small and an empty later read; each
+    set must reach what it names."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc")
+    import chip_smoke
+    from genomeworks_tpu_torch.ops import poa_cuda
+    from genomeworks_tpu_torch.poa import banded_plain
+
+    label, windows, weights, caps, bw, kinds, want = chip_smoke.band_edge_sets(
+        np.random.default_rng(2028))[case]
+    caps = caps or [3 * max(len(s) for s in w) for w in windows]
+    N = max(max(caps), max(len(s) for w in windows for s in w))
+    seqs, wts, lens, nseqs, _ = torch_poa.pack_windows(windows, weights, N)
+    cpu = [torch.from_numpy(a) for a in (seqs, wts, lens, nseqs)]
+    caps_t = torch.tensor(caps, dtype=torch.int32)
+    fn = poa_cuda.poa_consensus_cuda if output == "consensus" else poa_cuda.poa_msa_cuda
+    plain = banded_plain.poa_banded_plain if output == "consensus" else \
+        banded_plain.poa_msa_banded_plain
+    facts = set()
+    for kind in kinds:
+        launches = fn.launches
+        out = fn(*(a.cuda() for a in cpu), N=N, E=50, A=50, band_width=bw,
+                 adaptive=kind == "adaptive", caps=caps_t.cuda())
+        work = {}
+        ref = plain(*cpu, caps_t, 50, 50, -8, -6, 8, bw, kind == "adaptive", work=work)
+        torch.cuda.synchronize()
+        assert fn.launches == launches + 1
+        for a, b in zip(out, ref):
+            assert torch.equal(a.cpu(), b)
+        facts |= chip_smoke.band_facts(work, set(out[-1].tolist()), windows)
+    assert want <= facts, sorted(want - facts)
+
+
 WINDOW_EDGE_SETS = ["lane-edges", "tile-edges", "ring", "long", "wide-lists",
                     "empty-weighted", "E100", "E130", "2kb", "no-ring"]
 
@@ -269,7 +315,7 @@ def _lockstep_chain(windows, weights, D=None):
 @pytest.mark.parametrize(
     "case", ["unit", "weighted", "small-ring", "edge-cap", "node-cap", "lane-edges",
              "warp-edge", "widest", "distances", "caps", "wide-lists", "empty-weighted",
-             "spec", "short-walk", "waves"])
+             "spec", "short-walk", "waves", "consensus"])
 def test_lockstep_kernels_match_plain_on_gpu(case):
     """Each lockstep kernel (the NW, the single-phase traceback, add and
     topsort, the consensus) equals its plain version, outputs and whole
@@ -281,7 +327,9 @@ def test_lockstep_kernels_match_plain_on_gpu(case):
     past it, lists filled to their caps and past them, lists past 32 slots
     at other caps, an empty later read and weights 0-9, walks whose
     speculation misses at once and never misses, a short K (walks past K,
-    statuses 3 and 100), more windows than one wave; each must reach what
+    statuses 3 and 100), more windows than one wave, the consensus's ties
+    on weight and on the sources' scores, in-lists past 32, branch
+    completion over several loops and its status 3; each must reach what
     its set names."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card and nvcc")
