@@ -75,10 +75,14 @@ Phases, each of which fails the run (nonzero exit, no result line):
    past it, W = 16384 at M = 48, an identical 2-kb pair, diagonal runs
    that end at i = 0 or j = 0 inside a word, qlen at a word's edges, indel
    runs past the traceback's 32-column tile, the drifting pair, empty
-   sequences, rcap 1 and 4, 64 indel-dense 10-kb pairs), each of which
-   must reach what it names (``walk_words`` facts from the plain outputs;
-   the plain versions run on the host CPU, one process per core, from
-   phase 3 on).
+   sequences, rcap 1 and 4, 64 indel-dense 10-kb pairs; and the Myers
+   kernel's layouts: the bands where its words a lane change, qlen across
+   the window's first moves (rows 63 and 95) and its 8-row groups, a
+   window wider than the target's words, pairs that do not fit the band,
+   W = 32768 at M = 48), each of which must reach what it names
+   (``walk_words`` and ``myers_facts`` facts from the plain outputs; the
+   plain versions run on the host CPU, one process per core, from phase 3
+   on).
 5. aligner main path: 1024 pairs of 2 kb and 32 pairs of 10 kb (4 %
    substitutions, 1 % insertions, 1 % deletions) through
    ``create_aligner(max_bandwidth=1024, device="cuda")``, then 128 of the
@@ -92,7 +96,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    rows and columns the aligner packs a chunk at), against its plain
    version (bit for bit) and its bound; and at the power-of-two shapes it
    packed at before (M = N = 2048 and 16384), whose outputs must equal
-   those at the new shapes.
+   those at the new shapes; the Myers kernel also at the ``myers_full``
+   shape (phase 5's 128 engine pairs at the band that run gave them, W =
+   4096) against its plain version and its bound, with the inputs of its
+   cycles a row (ms, the longest query's rows).
 6b. each lockstep kernel at the largest covid bucket's shapes: CUDA events
    around every launch of the bucket's chain, once with the fused
    ``read_lockstep`` (the main path's) and once with the single-phase
@@ -458,12 +465,16 @@ ALIGNER_REPLACES = {
     "rle_traceback_cuda": "genomeworks_tpu/ops/rle_traceback_pallas.py:376, "
                           "genomeworks_tpu/ops/rle_traceback_pallas.py:462",
 }
-ALIGNER_STATE = {"myers_banded_cuda": "ported", "banded_nw_cuda": "redesigned in slice 9",
+ALIGNER_STATE = {"myers_banded_cuda": "redesigned in slice 10",
+                 "banded_nw_cuda": "redesigned in slice 9",
                  "rle_traceback_cuda": "redesigned in slice 9"}
-#: the kernels before their redesign (the NW a block per alignment, the
-#: traceback a thread per alignment) at the power-of-two shapes the aligner
-#: packed at then, ms: PERF.md's table, an H100 80GB HBM3 at 700 W
-EARLIER_ALIGNER_MS = {"banded_nw_cuda": 7.327, "rle_traceback_cuda": 4.439}
+#: the kernels before their redesign, ms (PERF.md's table, an H100 80GB HBM3
+#: at 700 W): the NW a block per alignment and the traceback a thread per
+#: alignment at the power-of-two shapes the aligner packed at then; the
+#: Myers kernel with its state in shared memory at the packed shape; printed
+#: beside this run's times, never in the kernels line (not measured here)
+EARLIER_ALIGNER_MS = {"myers_banded_cuda": 0.8144, "banded_nw_cuda": 7.327,
+                      "rle_traceback_cuda": 4.439}
 #: the default-engine run's launches: Myers for the two chunks of 2-kb pairs,
 #: the NW for the 10-kb bucket, a traceback for each of the three
 MAIN_LAUNCHES = {"myers_banded_cuda": 2, "banded_nw_cuda": 1, "rle_traceback_cuda": 3}
@@ -607,7 +618,13 @@ def aligner_edge_sets(rng, warp_max_band):
     def noisy(n, length, rate):
         return random_pairs(rng, n, length, rate, rate, rate)
 
+    def mutated_str(s):
+        q = np.frombuffer(s.encode(), np.uint8)
+        codes = np.searchsorted(BASES, q).astype(np.uint8)
+        return BASES[mutated(rng, codes, 0.08, 0.02, 0.02)].tobytes().decode()
+
     both, nw = ("myers_banded_cuda", "banded_nw_cuda"), ("banded_nw_cuda",)
+    myers = ("myers_banded_cuda",)
     a, b, x, y = (rnd(n) for n in (60, 60, 20, 20))
     drift = (a + x + b, a + b + y)
     c1, c2 = rnd(100), rnd(100)
@@ -663,7 +680,72 @@ def aligner_edge_sets(rng, warp_max_band):
                      want={"overflow at rcap 1", "overflow at rcap 4", "more than 32 runs"}),
         "dense-10kb": spec("64 indel-dense 10-kb pairs (12 % each)", noisy(64, 10000, 0.12),
                            (256,), nw, want={"a 10-kb walk", "more than 4096 runs"}),
+        # the Myers kernel's layouts (myers_facts); new sets go last, so the
+        # sets above keep their random draws
+        "myers-layouts": spec("the bands where the Myers layouts meet (1 | 2 | 3 | 5 | 9 | 17 | "
+                              "33 window words a lane)", noisy(4, 60, 0.1),
+                              MYERS_LAYOUT_BANDS, myers,
+                              want={f"Myers, {n} words a lane" for n in (1, 2, 3, 5, 9, 17, 33)}),
+        "myers-rows": spec("qlen across the Myers window's first moves and its row groups",
+                           [(x, mutated_str(x)) for x in
+                            (rnd(n) for n in (20, 31, 63, 64, 95, 96, 97, 104, 113))],
+                           (32, 64, 128), want={
+                               "a query under 32 rows: the window never moves",
+                               "qlen 63: the window moves after the last row",
+                               "rows past the window's first move (row 63)",
+                               "rows past its second move (row 95)",
+                               "a last 8-row group cut short",
+                               "a last plane word of 1-8 rows", "a last plane word of 9-15 rows"}),
+        "myers-narrow": spec("a Myers window wider than the target's words (M <= 32)",
+                             [(rnd(28), rnd(25)), (c1[:16], c1[:16]), (rnd(30), rnd(12)),
+                              (rnd(9), c2[:30])], (64, 128),
+                             want={"a Myers window wider than the target's words"}),
+        "myers-unfit": spec("|qlen - tlen| >= W: fits is false",
+                            [(rnd(100), rnd(20)), (rnd(20), rnd(100)), (c1, c1[:70])], (32, 64),
+                            want={"a pair that does not fit the band"}),
+        "myers-w32768": spec("W = 32768 at M = 48", [(drift[0][:40], drift[1][:45])]
+                             + noisy(3, 40, 0.1), (32768,), myers,
+                             want={"W = 32768", "Myers, 33 words a lane"}),
     }
+
+
+#: the bands on either side of each change of the Myers kernel's words a lane
+#: (csrc/myers_banded.cu myers_banded_launch: a window of W/32 + 4 words)
+MYERS_LAYOUT_BANDS = (896, 928, 1920, 1952, 2944, 2976, 4992, 5024, 9088, 9120, 17280, 17312)
+
+
+def myers_facts(M, W, qlen, fits, words_per_lane=None):
+    """What a Myers plane at (M, W) of pairs of these query lengths and fits
+    reaches of the kernel's layout (csrc/myers_banded.cu): its instantiation
+    (``words_per_lane``, the library's ``myers_banded_words_per_lane(M, W)``,
+    where the library is at hand), a window wider than the target's words,
+    pairs that do not fit, where the window moves (after rows 63, 95, ...),
+    and how the last 8-row stash group and plane word end."""
+    facts = set() if words_per_lane is None else {f"Myers, {words_per_lane} words a lane"}
+    if W // 32 + 4 > -(-(M + W + 64) // 32):
+        facts.add("a Myers window wider than the target's words")
+    if not np.asarray(fits).all():
+        facts.add("a pair that does not fit the band")
+    if W == 32768:
+        facts.add("W = 32768")
+    for ql in np.asarray(qlen).tolist():
+        if ql == 0:
+            continue
+        if ql < 32:
+            facts.add("a query under 32 rows: the window never moves")
+        if ql == 63:
+            facts.add("qlen 63: the window moves after the last row")
+        if ql > 63:
+            facts.add("rows past the window's first move (row 63)")
+        if ql > 95:
+            facts.add("rows past its second move (row 95)")
+        if ql % 8:
+            facts.add("a last 8-row group cut short")
+        if 1 <= ql % 16 <= 8:
+            facts.add("a last plane word of 1-8 rows")
+        elif ql % 16 > 8:
+            facts.add("a last plane word of 9-15 rows")
+    return facts
 
 
 def aligner_edge_plain(spec, dev):
@@ -743,6 +825,11 @@ def aligner_edge_compare(spec, dev, warp_max_band, err=None, plain=None):
                     facts.add("a band not a multiple of 32" if W % 32 else "a band of 32s")
                     facts.add("the warp kernel's widest band" if W == warp_max_band else
                               "the block kernel" if W > warp_max_band else "the warp kernel")
+                if fwd == "myers_banded_cuda":
+                    M = q.shape[1]
+                    facts |= myers_facts(
+                        M, W, qlen.cpu().numpy(), out[1].cpu().numpy(),
+                        myers_banded_cuda.load_library().myers_banded_words_per_lane(M, W))
                 if W == 16384:
                     facts.add("W = 16384")
     for codes, ql, tl, W in spec["planes"]:
@@ -963,7 +1050,7 @@ def aligner_phases(dev, ops, edge_plain):
         # wrote (4 bytes each) and the four per-walk results
         tbytes = 4 * words + nbytes((qlen, tlen, dlo, *tb[1:])) + 4 * int(tb[1].sum())
         timed[fwd] = {"ms": ms, "plain_ms": p_ms, "bytes": fbytes, "ops": ops_n,
-                      "old_ms": old_ms}
+                      "old_ms": old_ms, "max_qlen": int(ql.max()), "pairs": len(pairs)}
         shapes[fwd] = f"{len(pairs)} main-path pairs, M={M}, N={N}, W={W}"
         timed[TB] = {k: timed[TB][k] + v for k, v in
                      (("ms", tb_ms), ("plain_ms", tp_ms), ("bytes", tbytes),
@@ -974,12 +1061,46 @@ def aligner_phases(dev, ops, edge_plain):
               f"M = N = {s}: kernel {old_ms:.4f} ms, traceback {tb_old_ms:.4f} ms, outputs "
               f"equal", flush=True)
 
+    # the Myers kernel alone at the myers_full shape: phase 5's 128 engine
+    # pairs, packed as that run packs them, at the band it gave them all
+    MY = "myers_banded_cuda"
+    bands = engines["myers_full"][2]
+    if len(bands) != 1:
+        fail(f"the myers_full run used several bands: {bands}")
+    Wf = next(iter(bands))
+    full = short[:128]
+    M, N = pack_shape(full, 2048)
+    q, t, qlen, tlen = pack_pairs(full, M, N, dev)
+    f_ms, f_out = cuda_ms(lambda: ops[MY]._launch(libs[MY], q, t, qlen, tlen, Wf), reps=3)
+    fp_ms, fp_out = cuda_ms(lambda: plain[MY](q, t, qlen, tlen, Wf))
+    err[MY] = max(err[MY], compare(f"{MY} at the myers_full shape", f_out, fp_out))
+    ql = qlen.cpu().numpy().astype(np.int64)
+    f_bytes = int(ql.sum() + tlen.cpu().numpy().astype(np.int64).sum()) \
+        + nbytes((qlen, tlen, f_out[1])) + 4 * Wf * int(((ql + 15) // 16).sum())
+    f_ops = MYERS_WORD_OPS * (Wf // 32) * int(ql.sum())
+    f_bound = max(f_bytes / HBM_BYTES_PER_S, f_ops / SCALAR_OPS_PER_S) * 1e3
+    print(f"time {MY} at the myers_full shape: 128 pairs, W={Wf}, M={M}, N={N}: kernel "
+          f"{f_ms:.4f} ms, plain {fp_ms:.1f} ms; bound {f_bytes} bytes, {f_ops} int32 ops -> "
+          f"{f_bound:.6f} ms", flush=True)
+    # the inputs of cycles a row (the debug build in experiments/
+    # torch_aligner_check.py counts them): a row warp an alignment, so a
+    # launch lasts about its longest query's rows
+    print(f"{MY} cycles a row, inputs: main path {timed[MY]['ms']:.4f} ms over "
+          f"{timed[MY]['max_qlen']} rows (the longest query of {timed[MY]['pairs']} alignments), "
+          f"myers_full {f_ms:.4f} ms over {int(ql.max())} rows (128 alignments)")
+    myers_full = {"timed_on": f"128 myers_full pairs, M={M}, N={N}, W={Wf}", "ms": f_ms,
+                  "plain_ms": fp_ms, "bound_ms": f_bound,
+                  "bound_by": "bytes" if f_bytes / HBM_BYTES_PER_S >= f_ops / SCALAR_OPS_PER_S
+                  else "operations"}
+
     entries = []
     for name, tm in timed.items():
         t_bytes = tm["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = tm["ops"] / SCALAR_OPS_PER_S * 1e3
         print(f"{name} bound: {tm['bytes']} bytes -> {t_bytes:.6f} ms; {tm['ops']} int32 ops "
               f"-> {t_ops:.6f} ms")
+        print(f"{name} before its redesign: {EARLIER_ALIGNER_MS[name]} ms (PERF.md's table, not "
+              f"measured in this run); now {tm['ms']:.4f} ms, {tm['old_ms']:.4f} ms at M = N = s")
         entries.append({
             "name": name,
             "route": "cuda",
@@ -995,7 +1116,7 @@ def aligner_phases(dev, ops, edge_plain):
             "library_ms": None,
             "timed_on": shapes[name],
             "ms_at_pow2_shape": tm["old_ms"],
-            **({"earlier_ms": EARLIER_ALIGNER_MS[name]} if name in EARLIER_ALIGNER_MS else {}),
+            **({"myers_full": myers_full} if name == MY else {}),
             "main_path_s": main_wall,
             "alignments_per_s": len(every) / main_wall,
         })

@@ -1,31 +1,51 @@
-"""Old against new for the aligner's banded NW and RLE traceback kernels on
-one card.
+"""Old against new for the aligner's kernels (the Myers forward, the banded
+NW and the RLE traceback) on one card.
 
     python3 experiments/torch_aligner_check.py [--parent DIR]
+        [--myers NAME=SOURCE[:MACRO~VALUE...]] ... [--scan]
 
-1. Builds csrc/banded_nw.cu and csrc/rle_traceback.cu, their debug builds
-   (``-DNW_STATS=1``: clock64 cycles over a warp kernel's rows;
+1. Builds csrc/myers_banded.cu, csrc/banded_nw.cu and csrc/rle_traceback.cu,
+   their debug builds (``-DMYERS_STATS=1``: clock64 cycles of a Myers row
+   warp over its rows and at its barriers, and of its first flush warp
+   between barriers;
+   ``-DNW_STATS=1``: clock64 cycles over a warp kernel's rows;
    ``-DRLE_TB_STATS=1``: a walk's cycles, steps, moves and tile loads) and,
    with ``--parent DIR`` (a directory holding another checkout's
-   genomeworks_tpu_torch/csrc/banded_nw.cu and rle_traceback.cu, e.g. the
-   parent commit unpacked with ``git archive``), those two sources too,
-   through ``_build.build`` with an absolute source path, one nvcc a build,
-   started together. Prints each build's registers, shared memory and
-   spills as ptxas reports them. The parent must have this checkout's
-   launch functions (``banded_nw_launch``, ``rle_traceback_launch``).
+   genomeworks_tpu_torch/csrc/myers_banded.cu, banded_nw.cu and
+   rle_traceback.cu, e.g. the parent commit unpacked with ``git archive``),
+   those three sources too, and each ``--myers`` version of
+   ``csrc/myers_banded.cu`` (SOURCE an absolute or relative path, built with
+   ``-DMACRO=VALUE`` for each ``:MACRO~VALUE``), through ``_build.build``
+   with an absolute source path, one nvcc a library, started together (the
+   same source and macros are one library). Prints each build's registers,
+   shared memory and spills of every instantiation as ptxas reports them.
+   The parent and the versions must have this checkout's launch functions
+   (``myers_banded_launch``, ``banded_nw_launch``, ``rle_traceback_launch``).
 2. The main path's first-pass pairs (``chip_smoke`` phase 5's seed: 512
-   pairs of 2 kb, 32 of 10 kb, W = 64): the NW on the 10-kb pairs, and the
-   traceback on both buckets' planes (the 2-kb planes from the Myers kernel,
-   the 10-kb ones from the NW), at the rows and columns the aligner packs a
-   chunk at (``pack_shape``) and at the power-of-two shapes it packed at
-   before (M = N = 2048 and 16384), then the NW at bands 128 to 1024 on
-   the 10-kb pairs. Each build in turns (parent, this, this, parent),
-   every launch timed with CUDA events (median of 5); every turn's outputs
-   must equal the first turn's at the same shape, and the two shapes'
-   traceback outputs must be equal.
-3. The debug builds' counters on the same inputs: cycles a NW row (warp
-   kernel, lane 0's clock), cycles a traceback step, steps against moves
-   inside the matrix, and the tile loads the walks waited for.
+   pairs of 2 kb, 32 of 10 kb, W = 64): the Myers kernel on the 2-kb pairs
+   at W = 64 and at bands 128 to 1024, and at the ``myers_full`` shape (the
+   first 128 of those pairs at W = 4096, as phase 5's engine run packs
+   them); the NW on the 10-kb pairs, and the traceback on both buckets'
+   planes (the 2-kb planes from this checkout's Myers kernel, the 10-kb ones
+   from the NW), at the rows and columns the aligner packs a chunk at
+   (``pack_shape``) and at the power-of-two shapes it packed at before
+   (M = N = 2048 and 16384), then the NW at bands 128 to 1024 on the 10-kb
+   pairs. Each build in turns (parent, this, the ``--myers`` versions, then
+   in reverse; the versions on the Myers shapes only), every launch timed
+   with CUDA events (median of 5); every turn's outputs must equal the
+   first turn's at the same shape, the two shapes' traceback outputs must be
+   equal, and this build's Myers outputs must equal ``myers_banded_plain``
+   at every Myers shape.
+3. The debug builds' counters on the same inputs (and those of each
+   ``--myers`` version built with ``MYERS_STATS~1``): cycles a Myers row
+   (the row warp, barrier waits included, and those waits alone) and the
+   flush warp's cycles a 16-row plane word row (lane 0's clock, over the
+   alignments), a NW row (warp kernel, lane 0's clock), a traceback step,
+   steps against moves inside the matrix, and the tile loads the walks
+   waited for.
+4. With ``--scan``: the Myers debug build's cycles a row at W = 64 and 1024
+   with 1, 4, 128 and 512 of the 2-kb pairs launched (does one alignment
+   alone take as long a row as many?).
 
 Prints the card's name and power limit first. Needs CUDA and nvcc.
 """
@@ -48,15 +68,19 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
 from genomeworks_tpu_torch.aligner.aligner import pack_pairs, pack_shape  # noqa: E402
 from genomeworks_tpu_torch.aligner.banded_nw import band_offset  # noqa: E402
+from genomeworks_tpu_torch.aligner.myers_banded_model import myers_banded_plain  # noqa: E402
 from genomeworks_tpu_torch.ops import _build  # noqa: E402
 from genomeworks_tpu_torch.ops import banded_nw_cuda as nw  # noqa: E402
 from genomeworks_tpu_torch.ops import myers_banded_cuda as myers  # noqa: E402
 from genomeworks_tpu_torch.ops import rle_traceback_cuda as tb  # noqa: E402
 
-#: the debug builds' counters, in the order of the sources' NS_* / TS_* enums
+#: the debug builds' counters, in the order of the sources' MS_* / NS_* / TS_*
+#: enums
+MYERS_STATS = ("pairs", "rows", "cycles", "wait_cycles", "flush_cycles", "groups")
 NW_STATS = ("pairs", "rows", "cycles")
 TB_STATS = ("walks", "cycles", "steps", "moves", "loads", "prefetched")
 W = 64  # the main path's first band
+LAUNCH = {"myers": "myers_banded_launch", "nw": "banded_nw_launch", "tb": "rle_traceback_launch"}
 
 
 def ptxas(path, label):
@@ -83,9 +107,23 @@ def same(a, b):
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+def myers_counters(lib, inputs, wide):
+    """The Myers debug counters of one launch, or None for a normal build."""
+    ctr = (ctypes.c_ulonglong * len(MYERS_STATS))()
+    if lib.myers_banded_stats(ctr, 1) != 0:
+        return None
+    myers._launch(lib, *inputs, wide)
+    torch.cuda.synchronize()
+    lib.myers_banded_stats(ctr, 1)
+    return dict(zip(MYERS_STATS, (int(x) for x in ctr)))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", default="")
+    ap.add_argument("--myers", action="append", default=[],
+                    help="NAME=SOURCE[:MACRO~VALUE...], a version of the Myers kernel")
+    ap.add_argument("--scan", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs CUDA", file=sys.stderr)
@@ -96,24 +134,39 @@ def main() -> int:
     jobs = {("nw", "this"): (nw.SOURCE, None), ("tb", "this"): (tb.SOURCE, None),
             ("nw", "debug"): (nw.SOURCE, {"NW_STATS": 1}),
             ("tb", "debug"): (tb.SOURCE, {"RLE_TB_STATS": 1}),
-            ("myers", "this"): (myers.SOURCE, None)}
+            ("myers", "this"): (myers.SOURCE, None),
+            ("myers", "debug"): (myers.SOURCE, {"MYERS_STATS": 1})}
     if args.parent:
-        for key, mod in (("nw", nw), ("tb", tb)):
+        for key, mod in (("myers", myers), ("nw", nw), ("tb", tb)):
             jobs[(key, "parent")] = (os.path.abspath(os.path.join(
                 args.parent, "genomeworks_tpu_torch", "csrc", mod.SOURCE)), None)
-    with ThreadPoolExecutor(len(jobs)) as pool:  # one nvcc a build, started together
-        paths = dict(zip(jobs, pool.map(lambda j: _build.build(*j), jobs.values())))
-    libs = {}
+    versions = []
+    for arg in args.myers:
+        name, rest = arg.split("=", 1)
+        path, *defs = rest.split(":")
+        versions.append(name)
+        jobs[("myers", name)] = (os.path.abspath(path),
+                                 {d.split("~")[0]: d.split("~")[1] for d in defs} or None)
+    # one nvcc a library, started together (a parent source equal to this
+    # checkout's is the same library)
+    paths = {key: _build.library_path(*job) for key, job in jobs.items()}
+    uniq = {path: jobs[key] for key, path in reversed(paths.items())}
+    with ThreadPoolExecutor(len(uniq)) as pool:
+        list(pool.map(lambda j: _build.build(*j), uniq.values()))
+    libs, printed = {}, set()
     for (key, name), path in paths.items():
-        ptxas(path, f"{os.path.basename(jobs[(key, name)][0])} ({name})")
+        if path not in printed:
+            printed.add(path)
+            ptxas(path, f"{os.path.basename(jobs[(key, name)][0])} ({name})")
         lib = ctypes.CDLL(path)
-        if name == "parent":  # the parent's launch function, as this checkout binds it
-            ref = libs[(key, "this")]
-            launch = "banded_nw_launch" if key == "nw" else "rle_traceback_launch"
-            getattr(lib, launch).argtypes = getattr(ref, launch).argtypes
-            getattr(lib, launch).restype = ctypes.c_int
-        else:
+        if name in ("this", "debug"):
             lib = {"nw": nw, "tb": tb, "myers": myers}[key].bind(lib)
+        else:  # the parent's or a version's launch function, as this checkout binds it
+            ref = libs[(key, "this")]
+            for fn in (LAUNCH[key], "myers_banded_stats"):
+                if hasattr(lib, fn) and hasattr(ref, fn):
+                    getattr(lib, fn).argtypes = getattr(ref, fn).argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
         libs[(key, name)] = lib
     print(f"the warp NW takes bands up to {libs[('nw', 'this')].banded_nw_warp_max_band()}")
 
@@ -125,11 +178,27 @@ def main() -> int:
         for shape, (M, N) in (("new", pack_shape(pairs, s)), ("old", (s, s))):
             q, t, qlen, tlen = pack_pairs(pairs, M, N, dev)
             cases[(bucket, shape)] = (q, t, qlen, tlen, band_offset(qlen, tlen, W), M, N)
-    # the 2-kb planes come from the (unchanged) Myers kernel
+    # the 2-kb planes come from this checkout's Myers kernel
     planes = {k: myers._launch(libs[("myers", "this")], *v[:4], W)[0]
               for k, v in cases.items() if k[0] == "2 kb"}
+    # the Myers shapes: the 2-kb pairs at the main path's band and wider, and
+    # the first 128 at the band myers_full gives them (qlen + tlen + 1, to a
+    # power of two: 4096)
+    myers_cases = {}
+    for wide in (W, 128, 256, 512, 1024):
+        myers_cases[("2 kb", wide)] = cases[("2 kb", "new")][:4]
+    full = short[:128]
+    myers_cases[("myers_full", 4096)] = pack_pairs(full, *pack_shape(full, 2048), dev)
+    for (label, wide), inputs in myers_cases.items():
+        ok = same(myers._launch(libs[("myers", "this")], *inputs, wide),
+                  myers_banded_plain(*inputs, wide))
+        print(f"myers {label} W={wide}: this build == myers_banded_plain: {ok}", flush=True)
+        if not ok:
+            print("SOME RUN DIFFERS")
+            return 1
 
-    order = ["parent", "this", "this", "parent"] if args.parent else ["this", "this"]
+    names = (["parent"] if args.parent else []) + ["this"] + versions
+    order = names + names[::-1]
     ref, times, ok = {}, {}, True
 
     def timed(name, kernel, key, fn):
@@ -140,7 +209,12 @@ def main() -> int:
         return out
 
     for turn, name in enumerate(order):
-        for (bucket, shape), (q, t, qlen, tlen, dlo, M, N) in cases.items():
+        for (label, wide), (q, t, qlen, tlen) in myers_cases.items():
+            timed(name, "myers", (label, "new", q.shape[1], t.shape[1], wide),
+                  lambda: myers._launch(libs[("myers", name)], q, t, qlen, tlen, wide))
+        all_kernels = name not in versions  # a Myers version: the Myers shapes only
+        for (bucket, shape), (q, t, qlen, tlen, dlo, M, N) in \
+                (cases.items() if all_kernels else ()):
             if bucket == "10 kb":
                 codes = timed(name, "nw", (bucket, shape, M, N, W),
                               lambda: nw._launch(libs[("nw", name)], q, t, qlen, tlen, W))[0]
@@ -151,7 +225,7 @@ def main() -> int:
                         lambda: tb._launch(libs[("tb", name)], codes, qlen, tlen, dlo, cap))
             ok &= same(out, ref.setdefault(("tb", bucket), out))  # the same at both shapes
         q, t, qlen, tlen, _, M, N = cases[("10 kb", "new")]
-        for wide in (128, 256, 512, 1024):
+        for wide in (128, 256, 512, 1024) if all_kernels else ():
             timed(name, "nw", ("10 kb", "new", M, N, wide),
                   lambda: nw._launch(libs[("nw", name)], q, t, qlen, tlen, wide))
         print(f"turn {turn + 1} ({name}) done; outputs {'equal' if ok else 'DIFFER'}", flush=True)
@@ -161,13 +235,26 @@ def main() -> int:
             + " ms (median of 5 launches a turn)")
     for shape in ("new", "old"):
         sums = {name: sum(np.mean(by_name[name]) for (k, key), by_name in times.items()
-                          if k == "tb" and key[1] == shape) for name in set(order)}
+                          if k == "tb" and key[1] == shape) for name in set(order) - set(versions)}
         print(f"traceback on both buckets' planes, {shape} shapes, turns averaged: "
               + ", ".join(f"{n} {v:.4f} ms" for n, v in sums.items()))
 
     # the debug builds' counters
     ctr = (ctypes.c_ulonglong * len(TB_STATS))()
-    dbg_nw, dbg_tb = libs[("nw", "debug")], libs[("tb", "debug")]
+    dbg_my, dbg_nw, dbg_tb = libs[("myers", "debug")], libs[("nw", "debug")], libs[("tb", "debug")]
+    for name in ["debug"] + versions:
+        for (label, wide), inputs in myers_cases.items():
+            c = myers_counters(libs[("myers", name)], inputs, wide)
+            if c is None and name == "debug":
+                print("the Myers debug build's counters could not be read")
+                return 1
+            if c is None:  # a version's normal build
+                break
+            print(f"{name} myers {label} M={inputs[0].shape[1]} N={inputs[1].shape[1]} "
+                  f"W={wide}: {c}; {c['cycles'] / c['rows']:.1f} cycles a row, of which "
+                  f"{c['wait_cycles'] / c['rows']:.1f} at the barriers; a flush warp "
+                  f"{2 * c['flush_cycles'] / c['groups']:.1f} cycles a 16-row plane word row "
+                  f"(lane 0's clock, the mean over the {c['pairs']} alignments)")
     for shape in ("new", "old"):
         q, t, qlen, tlen, dlo, M, N = cases[("10 kb", shape)]
         dbg_nw.banded_nw_stats(ctr, 1)
@@ -192,6 +279,13 @@ def main() -> int:
                   f"({c['moves'] / c['steps']:.2f} moves a step); {c['cycles'] / c['steps']:.1f} "
                   f"cycles a step; {c['loads'] / c['walks']:.1f} tile loads waited for and "
                   f"{c['prefetched'] / c['walks']:.1f} prefetched rows a walk")
+    if args.scan:
+        for wide in (W, 1024):
+            for n in (1, 4, 128, 512):
+                c = myers_counters(dbg_my, pack_pairs(short[:n], *pack_shape(short[:n], 2048),
+                                                      dev), wide)
+                print(f"scan myers W={wide}, {n} alignments: {c['cycles'] / c['rows']:.1f} cycles "
+                      f"a row ({c['wait_cycles'] / c['rows']:.1f} at the barriers)", flush=True)
     print("ALL EQUAL" if ok else "SOME RUN DIFFERS")
     return 0 if ok else 1
 

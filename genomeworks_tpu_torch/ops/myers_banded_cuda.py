@@ -1,7 +1,10 @@
 """CUDA kernel for the bit-parallel banded Myers forward pass, one warp per
 alignment — the counterpart of genomeworks_tpu/ops/myers_banded_pallas.py
 (``myers_banded_forward_pallas``). It writes the row-major (B, M16, W)
-plane directly; there is no repack.
+plane directly; there is no repack. A row warp holds the window in
+registers (the library's ``myers_banded_words_per_lane(M, W)`` words a
+lane) and stashes each row's code words in shared memory; 1-4 flush warps
+transpose each 8 rows into the plane while the row warp runs the next 8.
 
 The kernel source is ``csrc/myers_banded.cu``; its plain PyTorch version is
 ``aligner/myers_banded_model.myers_banded_plain``.
@@ -33,6 +36,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.myers_banded_launch.argtypes = (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     lib.myers_banded_launch.restype = ctypes.c_int
+    lib.myers_banded_words_per_lane.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.myers_banded_words_per_lane.restype = ctypes.c_int
+    lib.myers_banded_stats.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
+    lib.myers_banded_stats.restype = ctypes.c_int
     return lib
 
 
@@ -45,12 +52,13 @@ def load_library():
 
 
 def smem_bytes(M: int, W: int) -> int:
-    """Shared memory of one alignment (csrc/myers_banded.cu Geometry): three
-    target tables over the (M + W + 64) / 32 words, the window state and one
-    row's code bits (4 x (W/32 + 4) words), and 16 rows of band bits."""
+    """Shared memory of one alignment (csrc/myers_banded.cu Geometry): four
+    per-base masks of the target over (M + W + 64) / 32 words and one more,
+    and the stash, two groups of 8 rows x 2 code bits x the window words 0
+    to W/32 + 1 (rounded up to an odd count)."""
     NW = (M + W + 2 * WBITS + WBITS - 1) // WBITS
-    NWIN = W // WBITS + 4
-    return 4 * (3 * NW + 4 * NWIN + 2 * 16 * (W // WBITS))
+    S = (W // WBITS + 2) | 1
+    return 4 * (4 * (NW + 1) + 2 * 8 * 2 * S)
 
 
 def myers_banded_cuda(q, t, qlen, tlen, band_width: int):

@@ -461,7 +461,8 @@ def _pairs(B, M, seed, rate):
 
 
 ALIGNER_EDGE_SETS = ["bands", "widest", "w16384", "identical", "diagonal-ends", "qlen16",
-                     "long-indels", "drift", "empty", "rcap", "dense-10kb"]
+                     "long-indels", "drift", "empty", "rcap", "dense-10kb", "myers-layouts",
+                     "myers-rows", "myers-narrow", "myers-unfit", "myers-w32768"]
 
 
 @pytest.mark.cuda
@@ -476,7 +477,10 @@ def test_aligner_kernels_match_plain_on_gpu(case):
     identical 2-kb pair, diagonal runs that end at i = 0 or j = 0 inside a
     word, qlen at a word's edges, indel runs past the traceback's tile, the
     drifting pair, empty sequences, rcap 1 and 4, 64 indel-dense 10-kb
-    pairs; each must reach what it names."""
+    pairs; and the Myers kernel's layouts (the bands where its words a lane
+    change, qlen across the window's first moves and its 8-row groups, a
+    window wider than the target's words, pairs that do not fit, W =
+    32768); each must reach what it names."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card and nvcc")
     if isinstance(case, str):
