@@ -143,8 +143,24 @@ Phases, each of which fails the run (nonzero exit, no result line):
    process per core) against the main paths' results: 16 covid windows per
    banded mode (8 of them for the MSA), 2 windows of 2000 bp x 6 reads per
    mode, and 256 covid windows' full-band MSA.
+10. the mapper (slice 11; no kernel of its own): a 2 Mbp random genome and
+   2,500 reads of 8-12 kb (about 12.5x; half reverse complemented; 1.5 %
+   substitutions, 1 % insertions, 1 % deletions), made with NumPy from a
+   seed, written to a FASTA in a temporary directory and run through
+   ``gw_mapper`` in this process with its defaults (k = 15, w = 10, one
+   30 MB index, automatic filtering): the device pipeline's PAF must equal
+   the host pipeline's byte for byte, also at ``-i 8`` (several index
+   pairs), and its SAM the host pipeline's (``map_reads`` and ``write_sam``,
+   as the tool writes it); two device runs must give the same bytes; every PAF
+   field must lie within its reads; ``--align`` over the overlaps among
+   the first 300 reads must give CIGARs that consume their spans, with the
+   aligner's Myers and traceback kernels launched and no plain version
+   called. Printed, not gated: recall against the simulated truth (pairs
+   whose genome intervals share 250 bases), the sketch, anchor and overlap
+   counts, the warm walls of ``map_reads`` on both pipelines,
+   ``phase_times()``, the peak device memory and the device's busy share.
 7. a ``kernels`` JSON line with each kernel's launches, error against its
-   plain version, times and bound.
+   plain version, times and bound (the mapper adds no entry).
 8. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of genomeworks_tpu or JAX.
@@ -225,7 +241,10 @@ def cuda_ms(fn, reps=1):
 
 def profiled(fn):
     """fn() once under torch.profiler: (device busy ms, wall s, device ms by
-    event name)."""
+    event name) of the events that ran on the card (kernels and copies).
+    The self device time of ``key_averages()`` also counts the aten ops and
+    the ``cudaLaunchKernel`` calls that launched a kernel."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -235,12 +254,9 @@ def profiled(fn):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name: dict = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     return sum(by_name.values()), wall, by_name
 
 
@@ -2286,6 +2302,235 @@ def slice4_phases(dev, covid, golden, n_long=256):
     return entries
 
 
+# -- slice 11: the mapper -----------------------------------------------------------
+
+#: a bacterial genome's all-vs-all overlaps: reads of 8-12 kb at about 12.5x
+#: over 2 Mbp, half reverse complemented, 1.5 % substitutions, 1 % insertions
+#: and 1 % deletions
+MAPPER_GENOME = 2_000_000
+MAPPER_READS = 2500
+MAPPER_LENGTHS = (8000, 12000)
+MAPPER_ERRORS = (0.015, 0.01, 0.01)
+#: the reads whose overlaps ``--align`` aligns
+MAPPER_ALIGN_READS = 300
+#: a true overlap: genome intervals that share this many bases (the tool's
+#: minimum overlap length)
+MAPPER_TRUE_OVERLAP = 250
+
+
+def mapper_reads(rng, genome_len, n, lengths, errors):
+    """A random genome and ``n`` reads of it, made in bulk with NumPy: each of
+    a uniform length in ``lengths`` at a uniform start, its substitutions,
+    deletions and insertions at the rates ``errors``, every other read
+    reverse complemented. Returns [(name, read)] and each read's genome
+    interval."""
+    sub, ins, dele = errors
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    genome = rng.integers(0, 4, genome_len, dtype=np.uint8)
+    reads, intervals = [], []
+    for i in range(n):
+        length = int(rng.integers(lengths[0], lengths[1] + 1))
+        start = int(rng.integers(0, genome_len - length + 1))
+        seg = genome[start:start + length].copy()
+        r = rng.random(length)
+        subst = r < sub
+        seg[subst] = (seg[subst] + rng.integers(1, 4, int(subst.sum()), dtype=np.uint8)) % 4
+        seg = seg[(r < sub) | (r >= sub + dele)]
+        n_ins = int(rng.binomial(len(seg), ins))
+        seg = np.insert(seg, rng.integers(0, len(seg) + 1, n_ins),
+                        rng.integers(0, 4, n_ins, dtype=np.uint8))
+        if i % 2:
+            seg = 3 - seg[::-1]
+        reads.append((f"read{i}", acgt[seg].tobytes().decode()))
+        intervals.append((start, start + length))
+    return reads, intervals
+
+
+def run_gw_mapper(args):
+    """The port's gw_mapper in this process, as a shell runs it (``sys.argv``,
+    so SAM and BAM headers carry no command line): its standard output's
+    bytes."""
+    import io
+
+    from genomeworks_tpu_torch.tools import gw_mapper
+
+    argv, stdout = sys.argv, sys.stdout
+    sys.argv = ["gw-mapper", *args]
+    sys.stdout = io.TextIOWrapper(io.BytesIO(), encoding="ascii")
+    try:
+        gw_mapper.main()
+        sys.stdout.flush()
+        return sys.stdout.buffer.getvalue()
+    finally:
+        sys.argv, sys.stdout = argv, stdout
+
+
+def paf_fields_ok(paf: bytes, lengths: dict) -> int:
+    """Every PAF line's names, lengths, strand and spans lie within its reads;
+    returns the line count."""
+    n = 0
+    for line in paf.decode().splitlines():
+        c = line.split("\t")
+        qn, ql, qs, qe, strand, tn, tl, ts, te = c[0], *map(int, c[1:4]), c[4], c[5], \
+            *map(int, c[6:9])
+        if lengths.get(qn) != ql or lengths.get(tn) != tl or strand not in "+-" or \
+                not (0 <= qs < qe <= ql and 0 <= ts < te <= tl):
+            fail(f"mapper: a PAF line outside its reads: {line[:200]}")
+        n += 1
+    return n
+
+
+def cigar_consumes(cigar: str, qspan: int, tspan: int) -> bool:
+    """An insertion is a target base absent from the query, a deletion the
+    reverse (aligner/types.py)."""
+    ops = re.findall(r"(\d+)([MID=X])", cigar)
+    return "".join(n + op for n, op in ops) == cigar and \
+        sum(int(n) for n, op in ops if op in "MD=X") == qspan and \
+        sum(int(n) for n, op in ops if op in "MI=X") == tspan
+
+
+def mapper_phase(dev, n_reads=MAPPER_READS, genome_len=MAPPER_GENOME, align_reads=MAPPER_ALIGN_READS):
+    """Phase 10: the port's mapper through ``gw_mapper`` and ``map_reads`` on
+    simulated reads of a bacterial genome; every gate fails the run."""
+    import io
+    import tempfile
+
+    from genomeworks_tpu_torch.aligner.banded_nw import banded_nw_forward_plain
+    from genomeworks_tpu_torch.aligner.myers_banded_model import myers_banded_plain
+    from genomeworks_tpu_torch.aligner.rle_traceback import rle_traceback_plain
+    from genomeworks_tpu_torch.core.profiling import phase_times, reset_phase_times
+    from genomeworks_tpu_torch.io import create_fasta_parser, write_fasta
+    from genomeworks_tpu_torch.io.sam import write_sam
+    from genomeworks_tpu_torch.mapper import MapperParams, map_reads
+    from genomeworks_tpu_torch.mapper.device_pipeline import _match_counts, build_index_device
+    from genomeworks_tpu_torch.ops.banded_nw_cuda import banded_nw_cuda
+    from genomeworks_tpu_torch.ops.myers_banded_cuda import myers_banded_cuda
+    from genomeworks_tpu_torch.ops.rle_traceback_cuda import rle_traceback_cuda
+
+    t_phase = time.perf_counter()
+    reads, intervals = mapper_reads(np.random.default_rng(2026), genome_len, n_reads,
+                                    MAPPER_LENGTHS, MAPPER_ERRORS)
+    lengths = {name: len(seq) for name, seq in reads}
+    bases = sum(lengths.values())
+    print(f"mapper: {len(reads)} reads, {bases} bases ({bases / genome_len:.2f}x over "
+          f"{genome_len} bp) made in {time.perf_counter() - t_phase:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        path, path_align = os.path.join(tmp, "reads.fa"), os.path.join(tmp, "align.fa")
+        write_fasta(reads, path)
+        write_fasta(reads[:align_reads], path_align)
+        dv = ["--device", dev.type]
+
+        walls = {}
+
+        def tool(label, *args):
+            t0 = time.perf_counter()
+            out = run_gw_mapper([*args, *dv])
+            walls[label] = time.perf_counter() - t0
+            return out
+
+        # -- 10a. the tool: device pipeline against the host pipeline ----------
+        paf = tool("paf", path)
+        if tool("paf again", path) != paf:
+            fail("mapper: two device-pipeline runs gave different PAF bytes")
+        if tool("paf host", path, "--host-pipeline") != paf:
+            fail("mapper: the device pipeline's PAF differs from the host pipeline's")
+        paf8 = tool("paf -i 8", path, "-i", "8")
+        if tool("paf -i 8 host", path, "-i", "8", "--host-pipeline") != paf8:
+            fail("mapper: at --index-size 8 the device pipeline's PAF differs from the host's")
+        sam = tool("sam", path, "--format", "sam")
+        n_paf, n_paf8 = paf_fields_ok(paf, lengths), paf_fields_ok(paf8, lengths)
+        print(f"mapper tool: PAF {n_paf} lines (-i 8: {n_paf8}), device == host pipeline "
+              f"byte for byte at both index sizes, two device runs equal; every field within "
+              f"its read; SAM {len(sam)} bytes; walls (s, one process, parse and output "
+              f"included): " + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
+
+        # recall against the simulated truth: pairs whose genome intervals
+        # share at least MAPPER_TRUE_OVERLAP bases
+        order = sorted(range(len(reads)), key=lambda i: intervals[i][0])
+        truth = set()
+        for a, i in enumerate(order):
+            for j in order[a + 1:]:
+                if intervals[j][0] > intervals[i][1] - MAPPER_TRUE_OVERLAP:
+                    break
+                if min(intervals[i][1], intervals[j][1]) - intervals[j][0] >= \
+                        MAPPER_TRUE_OVERLAP:
+                    truth.add((min(i, j), max(i, j)))
+        found = set()
+        for line in paf.decode().splitlines():
+            q, t = line.split("\t", 6)[0:6:5]
+            i, j = int(q[4:]), int(t[4:])
+            found.add((min(i, j), max(i, j)))
+        print(f"mapper recall: {len(found & truth)} of {len(truth)} true pairs "
+              f"({100 * len(found & truth) / max(len(truth), 1):.2f} %); {len(found - truth)} "
+              f"of {len(found)} pairs found are not true")
+
+        # -- 10b. the library: counts, warm walls, phases, memory, profile ------
+        parser = create_fasta_parser(path, min_sequence_length=24)
+        filtering = 1e-5 if bases >= 500_000 else 1.0
+        index = build_index_device(parser, 0, len(parser), filtering_parameter=filtering,
+                                   device=dev)
+        anchors = int(_match_counts(index, index)[2])
+        print(f"mapper index: {index.n} sketch elements, {index.u} representations after "
+              f"filtering at {filtering}; {anchors} anchors (self pairs included)")
+        del index
+
+        def mapped(device_pipeline):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = map_reads(parser, parser, MapperParams(device_pipeline=device_pipeline),
+                            device=dev)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        host, host_wall = mapped(False)
+        # the host pipeline's SAM, written as the tool writes it
+        host_sam = io.StringIO()
+        write_sam(host, None, parser, parser, host_sam)
+        if host_sam.getvalue().encode() != sam:
+            fail("mapper: the device pipeline's SAM differs from the host pipeline's")
+        torch.cuda.reset_peak_memory_stats()
+        reset_phase_times()
+        overlaps, dev_wall = mapped(True)
+        peak = torch.cuda.max_memory_allocated()
+        if overlaps != host:
+            fail("mapper: map_reads on the device pipeline differs from the host pipeline")
+        print(f"mapper map_reads (warm, after torch.cuda.synchronize()): {len(overlaps)} "
+              f"overlaps, the host pipeline's SAM == the tool's device SAM; device pipeline {dev_wall:.4f} s, {len(reads) / dev_wall:.1f} "
+              f"reads/s; host pipeline {host_wall:.4f} s; peak device memory "
+              f"{peak / 2**30:.3f} GiB; phases {json.dumps(phase_times())}")
+        busy_ms, prof_wall, by_name = profiled(lambda: mapped(True))
+        top = sorted(by_kernel(by_name).items(), key=lambda kv: -kv[1])[:10]
+        print(f"mapper profiled: {prof_wall * 1e3:.3f} ms wall under torch.profiler, device "
+              f"busy {busy_ms:.3f} ms ({100 * busy_ms / (prof_wall * 1e3):.2f} % of the wall); "
+              + "; ".join(f"{k} {v:.3f} ms" for k, v in top))
+
+        # -- 10c. --align on the overlaps among the first reads ------------------
+        kernels = (myers_banded_cuda, banded_nw_cuda, rle_traceback_cuda)
+        plains = (myers_banded_plain, banded_nw_forward_plain, rle_traceback_plain)
+        for k in kernels:
+            k.launches = 0
+        for p in plains:
+            p.calls = 0
+        t0 = time.perf_counter()
+        aligned = run_gw_mapper([path_align, "--align", *dv]).decode().splitlines()
+        align_wall = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in kernels}
+        calls = sum(p.calls for p in plains)
+        for line in aligned:
+            c = line.split("\t")
+            if not cigar_consumes(c[12].removeprefix("cg:Z:"), int(c[3]) - int(c[2]),
+                                  int(c[8]) - int(c[7])):
+                fail(f"mapper --align: a CIGAR does not consume its spans: {line[:200]}")
+        if not aligned or launches["myers_banded_cuda"] <= 0 or \
+                launches["rle_traceback_cuda"] <= 0 or calls:
+            fail(f"mapper --align: {len(aligned)} lines, launches {launches}, {calls} "
+                 f"plain-version calls")
+        print(f"mapper --align on the first {align_reads} reads: {len(aligned)} overlaps, "
+              f"every CIGAR consumes its spans; launches {launches}, {calls} plain-version "
+              f"calls; {align_wall:.3f} s")
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2634,6 +2879,10 @@ def main() -> int:
     # -- 9. the banded and MSA modes (slice 4) -----------------------------------
     mode_entries = slice4_phases(dev, covid, golden)
     print(f"phases 1-9: {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # -- 10. the mapper (slice 11) -------------------------------------------------
+    mapper_phase(dev)
+    print(f"phases 1-10: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # -- 7. kernels line ------------------------------------------------------
     t_bytes = timed["bytes"] / HBM_BYTES_PER_S * 1e3

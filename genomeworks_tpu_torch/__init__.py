@@ -17,7 +17,11 @@ Ported so far, each path through its own CUDA kernels:
   ``get_graphs``; the traceback-banded modes through the host chain, as the
   reference; and the ``gw_poa`` tool (``tools/gw_poa.py``);
 - the banded aligner through ``aligner.create_aligner`` (Myers, banded NW
-  and the run-length traceback).
+  and the run-length traceback);
+- the mapper through ``mapper.map_reads`` and the ``gw_mapper`` tool
+  (``tools/gw_mapper.py``): its device stages are PyTorch ops on the card
+  (the JAX package's are XLA ops, with no Pallas kernel), and ``--align``
+  runs the aligner's kernels; with the simulators and PAF, SAM and BAM I/O.
 """
 
 __version__ = "0.1.0"

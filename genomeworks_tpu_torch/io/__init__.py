@@ -1,6 +1,7 @@
-"""I/O layer of the PyTorch port: FASTA/FASTQ parsing.
+"""I/O layer of the PyTorch port: FASTA/FASTQ parsing, PAF reading/writing.
 
-Reference: GenomeWorks ``common/io`` (fasta_parser.hpp).
+Reference: GenomeWorks ``common/io`` (fasta_parser.hpp) and
+``cudamapper/src/utils.cpp`` (PAF/SAM output), ``pygenomeworks/io``.
 """
 
 from genomeworks_tpu_torch.io.fasta import (
@@ -9,3 +10,4 @@ from genomeworks_tpu_torch.io.fasta import (
     create_fasta_parser,
     write_fasta,
 )
+from genomeworks_tpu_torch.io.paf import PafRecord, read_paf, write_paf, overlap_to_paf_line

@@ -549,3 +549,110 @@ def test_create_aligner_on_gpu_runs_the_kernels():
             np.testing.assert_array_equal(st, align_cpu(qs, ts))
     dev = a.get_device_alignments()
     assert dev.metadata.device.type == "cuda" and dev.num_alignments() == len(pairs)
+
+
+# -- the mapper -------------------------------------------------------------------
+
+
+def _mapper_fasta(tmp_path, n=60, length=3000, seed=5):
+    """n reads of about ``length`` bases from one 40-kb genome, every other
+    one reverse complemented, 1 % substitutions and 0.5 % indels each (the
+    port's simulators)."""
+    import random
+
+    from genomeworks_tpu_torch.core.sequence import reverse_complement
+    from genomeworks_tpu_torch.io import write_fasta
+    from genomeworks_tpu_torch.simulators import NoisyReadSimulator, PoissonGenomeSimulator
+
+    genome = PoissonGenomeSimulator(seed).build_reference(40000)
+    random.seed(seed)
+    sim = NoisyReadSimulator()
+    reads = []
+    for i in range(n):
+        r, _, _ = sim.generate_read(genome, length + 50 * (i % 5), snv_error_rate=0.01,
+                                    insertion_error_rate=0.005, deletion_error_rate=0.005)
+        reads.append((f"r{i}", reverse_complement(r) if i % 2 else r))
+    path = str(tmp_path / "reads.fa")
+    write_fasta(reads, path)
+    return path
+
+
+@pytest.mark.cuda
+def test_mapper_sketch_on_gpu_equals_cpu():
+    """compute_sketch on the card equals it on the CPU, packed and not, with
+    reads shorter than a window."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from genomeworks_tpu_torch.mapper.minimizers import compute_sketch, pack_2bit
+
+    rng = np.random.default_rng(21)
+    reads = rng.integers(0, 4, size=(64, 3000)).astype(np.uint8)
+    lens = rng.integers(1500, 3001, size=64).astype(np.int32)
+    lens[:3] = (5, 20, 23)
+    for k, w, hashed, packed in ((15, 10, True, False), (15, 10, True, True),
+                                 (16, 1, True, False), (5, 7, False, True)):
+        inp = pack_2bit(reads) if packed else reads
+        gpu = compute_sketch(inp, lens, k, w, hashed, packed=packed, device="cuda")
+        cpu = compute_sketch(inp, lens, k, w, hashed, packed=packed, device="cpu")
+        assert gpu[0].device.type == "cuda"
+        for a, b in zip(gpu, cpu):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("filtering", [1.0, 0.002])
+def test_mapper_device_pipeline_on_gpu_equals_cpu(tmp_path, filtering):
+    """build_index_device and get_overlaps_device_pipeline on the card equal
+    the port's CPU run, as objects and as arrays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from genomeworks_tpu_torch.io import create_fasta_parser
+    from genomeworks_tpu_torch.mapper.device_pipeline import (
+        build_index_device, get_overlaps_device_pipeline,
+    )
+
+    parser = create_fasta_parser(_mapper_fasta(tmp_path))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        q = build_index_device(parser, 0, 60, filtering_parameter=filtering, device=dev)
+        t = build_index_device(parser, 20, 60, filtering_parameter=filtering, device=dev)
+        assert q.representations.device.type == dev
+        out[dev] = (q.to_host(), t.to_host(),
+                    get_overlaps_device_pipeline(q, q, True),
+                    get_overlaps_device_pipeline(q, t, False, as_arrays=True))
+    for a, b in zip(out["cuda"][:2], out["cpu"][:2]):
+        for name in ("representations", "read_ids", "positions_in_reads",
+                     "directions_of_reads", "unique_representations",
+                     "first_occurrence_of_representations"):
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+    assert len(out["cpu"][2]) > 0 and out["cuda"][2] == out["cpu"][2]
+    a, b = out["cuda"][3], out["cpu"][3]
+    assert len(b) > 0
+    for name in ("query_read_id", "target_read_id", "query_start", "query_end",
+                 "target_start", "target_end", "rev", "num_residues"):
+        np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+
+
+@pytest.mark.cuda
+def test_map_reads_on_gpu_equals_host_pipeline(tmp_path):
+    """map_reads(device="cuda") on the device pipeline equals the host
+    pipeline (sketch on the card, NumPy after it) and the CPU run, over
+    several index ranges; the mapper's phases are timed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from genomeworks_tpu_torch.core.profiling import phase_times, reset_phase_times
+    from genomeworks_tpu_torch.io import create_fasta_parser
+    from genomeworks_tpu_torch.mapper import MapperParams, map_reads
+
+    parser = create_fasta_parser(_mapper_fasta(tmp_path))
+    runs = {}
+    for name, dev, device_pipeline in (("gpu", "cuda", True), ("host", "cuda", False),
+                                       ("cpu", "cpu", True)):
+        params = MapperParams(index_size_mb=0.05, target_index_size_mb=0.05,
+                              filtering_parameter=0.001, device_pipeline=device_pipeline)
+        reset_phase_times()
+        runs[name] = map_reads(parser, parser, params, device=dev)
+        if name == "gpu":
+            assert phase_times()["mapper/expand_sort_chain"]["calls"] >= 3
+    assert len(runs["host"]) > 0
+    assert runs["gpu"] == runs["host"] == runs["cpu"]
