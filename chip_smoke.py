@@ -159,8 +159,46 @@ Phases, each of which fails the run (nonzero exit, no result line):
    whose genome intervals share 250 bases), the sketch, anchor and overlap
    counts, the warm walls of ``map_reads`` on both pipelines,
    ``phase_times()``, the peak device memory and the device's busy share.
+11. the extender and the batched Myers distance (slice 12): (a) the
+   extender's two kernels (``xdrop_extend_cuda``, a warp per seed, both
+   directions in one launch; ``xdrop_count_cuda``, the entropy's match
+   counts) against their plain versions (``extender/xdrop_plain.py``, on the
+   card), bit for bit, on seeded random seeds of a simulated 20 kb pair and
+   on edge sets (``xdrop_edge_sets``: seeds at 0, at L-1 and out of range;
+   extensions that end at a sequence end mid-tile and on a tile edge; a
+   drop of exactly xdrop that goes on and one of xdrop + 1 that stops; the
+   maximum tied in a tile and across tiles; every code 0-7; xdrop 0; a
+   1 Mbp genome against itself from a seed on the main diagonal), each of
+   which must reach what it names (``xdrop_facts``: a NumPy replay of every
+   seed, which must also equal the plain version); a 10 Mbp genome against
+   itself from a main-diagonal seed through the kernel alone, against its
+   closed form (the maxima at the sequence ends, the scores the diagonal's
+   sums); (b) the main path: a 10 Mbp random genome (the port's
+   genomesim) against a copy with 8 % substitutions and 0.5 % indels,
+   4,194,304 + 65,536 seeds (three quarters at true homologous positions
+   from the edit map, a quarter random pairs), so two batches, through
+   ``create_extender(device="cuda")``, ``extend_async`` at threshold 3000,
+   ``sync`` and ``get_scored_segment_pairs`` with the entropy on, counts set
+   to 0 just before: two device runs give the same list, every SSP lies
+   within both sequences and scores at least 3000, the extension kernel
+   launched once a batch and the count kernel ran, no plain version was
+   called, and a device run of the first 65,536 seeds equals
+   ``create_extender(device="cpu")`` on them; printed: the SSP count, the
+   seeds the entropy rescored, the warm wall and seeds/s, each kernel's
+   device ms, the busy share (``profiled``), the peak memory; (c) the port's
+   ``samples/sample_extender.py`` on the card, on that genome written to a
+   FASTA and a CSV of the first 65,536 seeds: its lines equal those of the
+   CPU path on the genome against itself with those seeds; (d)
+   ``myers_score_cuda`` (a thread per alignment) against its plain version
+   on the card and ``myers_edit_distance_batched(device="cuda")`` against
+   ``myers_edit_distance_cpu``, on empty queries, queries at a word's edges
+   and phase 5's 1,024 pairs of 2 kb (the oracle on the first 32, on the
+   host, one process per core); the 1,024 pairs through
+   ``myers_edit_distance_batched`` are its main path (one launch, no plain
+   call).
 7. a ``kernels`` JSON line with each kernel's launches, error against its
-   plain version, times and bound (the mapper adds no entry).
+   plain version, times and bound (the mapper adds no entry; phase 11 adds
+   ``xdrop_extend_cuda``, ``xdrop_count_cuda`` and ``myers_score_cuda``).
 8. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of genomeworks_tpu or JAX.
@@ -2531,13 +2569,476 @@ def mapper_phase(dev, n_reads=MAPPER_READS, genome_len=MAPPER_GENOME, align_read
     print(f"phase 10: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# -- slice 12: the extender and the batched Myers distance --------------------------
+
+XDROP_SOURCE = "genomeworks_tpu_torch/csrc/xdrop.cu"
+MYERS_SCORE_SOURCE = "genomeworks_tpu_torch/csrc/myers_score.cu"
+#: a 10 Mbp genome (a bacterium's scale) against a copy with 8 % substitutions
+#: and 0.5 % insertions and deletions
+EXT_GENOME = 10_000_000
+EXT_ERRORS = (0.08, 0.005)
+#: two batches at the default batch_max_extensions (1 << 22)
+EXT_SEEDS = (1 << 22) + 65_536
+#: the seeds the CPU path and the sample check
+EXT_CHECK = 65_536
+EXT_THRESHOLD = 3000
+#: int32 ops a position extended: the clamped reads' indices and bounds, the
+#: score's index, the prefix sum's and the running max's steps, the drop test
+XDROP_POS_OPS = 16
+#: int32 ops a position of a final segment counted: indices, bounds, the
+#: comparisons and the four ballots' predicates
+XCOUNT_POS_OPS = 10
+#: int32 ops a query word a target position in myers_score_kernel
+MYERS_SCORE_WORD_OPS = 22
+
+
+def extender_inputs(rng, length, sub, indel, n_seeds, homologous=0.75):
+    """A random genome of ``length`` (the target, codes 0-3), a query made
+    from it in bulk with NumPy (each base substituted with probability
+    ``sub``, deleted with ``indel / 2``, followed by an inserted random base
+    with ``indel / 2``), and ``n_seeds`` (query, target) seeds: the first
+    ``homologous`` share at true homologous positions from that edit map,
+    the rest random pairs, in a random order. Returns (query, target, seeds
+    int64 (n, 2))."""
+    from genomeworks_tpu_torch.extender import encode_sequence
+    from genomeworks_tpu_torch.simulators.genomesim import generate_random_genome
+
+    target = encode_sequence(generate_random_genome(length, rng)).astype(np.uint8)
+    r = rng.random(length)
+    dele = r < indel / 2
+    ins = (r >= indel / 2) & (r < indel)
+    base = target.copy()
+    subst = rng.random(length) < sub
+    base[subst] = (base[subst] + rng.integers(1, 4, int(subst.sum()), dtype=np.uint8)) % 4
+    kept = ~dele
+    n_out = kept.astype(np.int64) + ins
+    start = np.cumsum(n_out) - n_out
+    query = np.empty(int(n_out.sum()), np.uint8)
+    query[start[kept]] = base[kept]
+    query[start[ins] + kept[ins]] = rng.integers(0, 4, int(ins.sum()), dtype=np.uint8)
+    n_h = int(round(n_seeds * homologous))
+    j = np.flatnonzero(kept)[rng.integers(0, int(kept.sum()), n_h)]
+    seeds = np.empty((n_seeds, 2), np.int64)
+    seeds[:n_h, 0] = start[j]
+    seeds[:n_h, 1] = j
+    seeds[n_h:, 0] = rng.integers(0, len(query), n_seeds - n_h)
+    seeds[n_h:, 1] = rng.integers(0, length, n_seeds - n_h)
+    return query, target, seeds[rng.permutation(n_seeds)]
+
+
+def xdrop_walk(q, t, qs, ts, sub, xdrop, left):
+    """One direction of one seed replayed in NumPy over its whole diagonal,
+    as the reference defines it (no tiles): the positions in the sequences
+    score sub[target, query] (reads clamped), the running maximum starts at
+    0, and the walk stops before the first position whose deficit (running
+    max - cumulative) exceeds ``xdrop``. Returns a dict: best, pos (the
+    earliest offset of the best, -1 right / 0 left when it is 0), n (the
+    positions in the sequences), stop (positions walked), the offsets,
+    deficits and cumulative scores walked, and the codes read."""
+    Lq, Lt = len(q), len(t)
+    n = max(0, min(ts, qs)) if left else max(0, min(Lt - ts, Lq - qs))
+    o = np.arange(1, n + 1) if left else np.arange(n)
+    tp, qp = (ts - o, qs - o) if left else (ts + o, qs + o)
+    tc, qc = t[np.clip(tp, 0, Lt - 1)], q[np.clip(qp, 0, Lq - 1)]
+    cum = np.cumsum(sub[tc, qc].astype(np.int64))
+    run = np.maximum.accumulate(np.maximum(cum, 0))
+    deficit = run - cum
+    over = np.flatnonzero(deficit > xdrop)
+    stop = int(over[0]) if len(over) else n
+    best = int(run[stop - 1]) if stop else 0
+    pos = int(o[np.flatnonzero(cum[:stop] == best)[0]]) if best > 0 else (0 if left else -1)
+    return {"best": best, "pos": pos, "n": n, "stop": stop, "o": o, "deficit": deficit,
+            "cum": cum, "codes": set(tc[: stop + 1].tolist()) | set(qc[: stop + 1].tolist())}
+
+
+def xdrop_facts(q, t, seeds, sub, xdrop, out):
+    """What a set reaches, read from the plain version's outputs ``out``
+    (S, 4) and the NumPy replays of its seeds, which must agree with them."""
+    sub8 = np.asarray(sub, np.int64).reshape(8, 8)
+    facts = set()
+    if xdrop == 0:
+        facts.add("xdrop 0")
+    codes = set()
+    for (qs, ts), row in zip(seeds.tolist(), out.tolist()):
+        for left, side in ((False, "right"), (True, "left")):
+            w = xdrop_walk(q, t, qs, ts, sub8, xdrop, left)
+            got = (row[2], row[3]) if left else (row[0], row[1])
+            if got != (w["best"], w["pos"]):
+                fail(f"xdrop plain version {got} differs from the replay "
+                     f"{(w['best'], w['pos'])} at seed {(qs, ts)} {side}")
+            codes |= w["codes"]
+            n, stop = w["n"], w["stop"]
+            if stop == n and n:
+                facts.add(f"{side} ends at a sequence end "
+                          + ("on a tile edge" if n % 32 == 0 else "mid-tile"))
+            if stop < n and w["deficit"][stop] == xdrop + 1:
+                facts.add("stops at a drop of xdrop + 1")
+            if stop and w["deficit"][:stop].max() == xdrop and xdrop > 0:
+                facts.add("passes a drop of exactly xdrop")
+            if w["best"] > 0:
+                at = w["o"][np.flatnonzero(w["cum"][:stop] == w["best"])]
+                tiles = (at - 1 if left else at) // 32
+                if len(at) > 1:
+                    facts.add("tie in a tile" if tiles[1] == tiles[0] else "tie across tiles")
+                    if tiles[-1] != tiles[0]:
+                        facts.add("tie across tiles")
+            if w["best"] > 0 and w["pos"] == (ts if left else len(t) - 1 - ts) and \
+                    n == (ts if left else len(t) - ts):
+                facts.add(f"{side} reaches its sequence end")
+        if qs == 0 or ts == 0:
+            facts.add("seed at 0")
+        if qs == len(q) - 1 or ts == len(t) - 1:
+            facts.add("seed at L-1")
+        if not (0 <= qs < len(q) and 0 <= ts < len(t)):
+            facts.add("seed out of range")
+    if codes >= set(range(8)):
+        facts.add("codes 0-7")
+    return facts
+
+
+def xdrop_edge_sets(rng):
+    """The extender kernels' edge sets: label -> (query, target, seeds, sub,
+    xdrop, plain width, what the set must reach)."""
+    from genomeworks_tpu_torch.extender import DEFAULT_SCORE_MATRIX
+
+    d = DEFAULT_SCORE_MATRIX
+    g = rng.integers(0, 4, 1000).astype(np.uint8)
+    L = len(g)
+    ends = np.array([[0, 0], [L - 1, L - 1], [L - 64, L - 64], [L - 70, L - 70], [64, 64],
+                     [70, 70], [-5, -5], [L + 3, L + 3], [-40, 10], [10, -40],
+                     [L + 100, 5], [5, L + 100], [L - 1, 0], [0, L - 1]])
+    # a drop of exactly xdrop = 20 that recovers, and one of 21
+    exact = d.copy()
+    exact[0, 0], exact[0, 1] = 10, -1
+    dq = np.array([0] * 5 + [1] * 20 + [0] * 100 + [1] * 30 + [0] * 5 + [1] * 21 + [0] * 50
+                  + [1] * 40, np.uint8)
+    # +100 / -100 / +100: the maximum tied in a tile and across tiles
+    ties = d.copy()
+    ties[1, 1], ties[1, 2] = 100, -100
+    tq = np.array([1] + [2, 1] * 30 + [2] * 20 + [1, 2, 1] + [2] * 20, np.uint8)
+    codes = rng.integers(0, 8, 3000).astype(np.uint8)
+    codes_t = rng.integers(0, 8, 3000).astype(np.uint8)
+    rq, rt, rseeds = extender_inputs(rng, 20_000, *EXT_ERRORS, 3000)
+    big = rng.integers(0, 4, 1_000_000).astype(np.uint8)
+    mid = 500_007
+    return {
+        "ends": (g, g, ends, d, 910, 128,
+                 {"seed at 0", "seed at L-1", "seed out of range",
+                  "right ends at a sequence end mid-tile",
+                  "right ends at a sequence end on a tile edge",
+                  "left ends at a sequence end mid-tile",
+                  "left ends at a sequence end on a tile edge"}),
+        "drop at xdrop": (dq, np.zeros(len(dq), np.uint8), np.array([[0, 0], [155, 155]]),
+                          exact, 20, 32, {"passes a drop of exactly xdrop",
+                                          "stops at a drop of xdrop + 1"}),
+        "ties": (tq, np.ones(len(tq), np.uint8), np.array([[0, 0], [81, 81]]), ties, 910, 32,
+                 {"tie in a tile", "tie across tiles"}),
+        "codes 0-7": (codes, codes_t, np.stack([rng.integers(0, 3000, 400),
+                                                rng.integers(0, 3000, 400)], 1), d, 910, 128,
+                      {"codes 0-7"}),
+        "xdrop 0": (rq, rt, rseeds[::10], d, 0, 128, {"xdrop 0"}),
+        "random 20 kb": (rq, rt, rseeds, d, 910, 128, set()),
+        "random 20 kb, xdrop 200": (rq, rt, rseeds, d, 200, 128, set()),
+        "1 Mbp self": (big, big, np.array([[mid, mid]]), d, 910, 1 << 16,
+                       {"right reaches its sequence end", "left reaches its sequence end"}),
+    }
+
+
+def ssp_lines(ssps):
+    """The sample's lines for a list of SSPs."""
+    return [str(s) for s in ssps[:10]] + [f"{len(ssps)} scored segment pairs"]
+
+
+def myers_cpu_job(pair):
+    from genomeworks_tpu_torch.aligner.myers import myers_edit_distance_cpu
+
+    q, t = pair
+    return myers_edit_distance_cpu(t, q)
+
+
+def myers_plain_job(pairs):
+    """myers_score_plain on the host CPU (one thread) over a chunk of pairs,
+    as the batch packs them: (its output, seconds)."""
+    from genomeworks_tpu_torch.aligner.myers import myers_inputs, myers_score_plain
+
+    torch.set_num_threads(1)
+    peq, tc, ql, tl = myers_inputs([p[0] for p in pairs], [p[1] for p in pairs])
+    t0 = time.perf_counter()
+    out = myers_score_plain(*(torch.from_numpy(a) for a in (peq.view(np.int32), tc, ql, tl)))
+    return out, time.perf_counter() - t0
+
+
+def extender_phase(dev):
+    """Phase 11: the extender's kernels against their plain versions, its
+    main path over a 10 Mbp pair, the sample, and the batched Myers
+    distance. Every gate fails the run; returns the kernels line's entries."""
+    import io
+    import tempfile
+    from contextlib import redirect_stdout
+
+    from genomeworks_tpu_torch.aligner import myers as myers_mod
+    from genomeworks_tpu_torch.core.sequence import encode_bases
+    from genomeworks_tpu_torch.aligner.myers import (
+        myers_edit_distance_batched, myers_edit_distance_cpu, myers_inputs, myers_score_plain,
+    )
+    from genomeworks_tpu_torch.extender import DEFAULT_SCORE_MATRIX, create_extender
+    from genomeworks_tpu_torch.extender import xdrop_plain
+    from genomeworks_tpu_torch.io import native
+    from genomeworks_tpu_torch.ops import myers_score_cuda, xdrop_cuda
+    from genomeworks_tpu_torch.samples import sample_extender
+
+    t_phase = time.perf_counter()
+    plains = (xdrop_plain.xdrop_extend_plain, xdrop_plain.extend_direction_plain,
+              xdrop_plain.count_matches_plain, myers_score_plain)
+    rng = np.random.default_rng(2025)
+    short = random_pairs(rng, 1024, 2000, 0.04, 0.01, 0.01)  # phase 5's 2-kb pairs
+    pool = ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
+                               mp_context=multiprocessing.get_context("spawn"))
+    oracle_jobs = pool.map(myers_cpu_job, short[:32])
+    # the plain word chain is a host loop of some 20 ops a word a target
+    # position whatever the batch: on the card 2.6 M launches (93 s); on the
+    # host CPU one process per core over 128 pairs each, meanwhile
+    plain_jobs = pool.map(myers_plain_job, [short[i:i + 128] for i in range(0, 1024, 128)])
+
+    def tensors(q, t, seeds, sub):
+        return (torch.from_numpy(np.ascontiguousarray(q, np.uint8)).to(dev),
+                torch.from_numpy(np.ascontiguousarray(t, np.uint8)).to(dev),
+                torch.from_numpy(seeds[:, 0].astype(np.int32)).to(dev),
+                torch.from_numpy(seeds[:, 1].astype(np.int32)).to(dev),
+                torch.from_numpy(np.asarray(sub, np.int32).reshape(-1).copy()).to(dev))
+
+    # -- 11a. the extender's kernels against their plain versions ------------------
+    for label, (q, t, seeds, sub, xd, width, want) in xdrop_edge_sets(
+            np.random.default_rng(12)).items():
+        qd, td, qp, tp, sd = tensors(q, t, seeds, sub)
+        k = xdrop_cuda.xdrop_extend_cuda(qd, td, qp, tp, sd, xd)
+        p = xdrop_plain.xdrop_extend_plain(qd, td, qp, tp, sd, xd, width)
+        compare(f"xdrop_extend on {label}", (k,), (p,))
+        kc = xdrop_cuda.xdrop_count_cuda(qd, td, qp, tp, k[:, 3].contiguous(),
+                                         k[:, 1].contiguous())
+        pc = xdrop_plain.count_matches_plain(qd, td, qp, tp, p[:, 3].contiguous(),
+                                             p[:, 1].contiguous(), width)
+        compare(f"xdrop_count on {label}", (kc,), (pc,))
+        facts = xdrop_facts(q, t, seeds, sub, xd, p.cpu().numpy())
+        if not want <= facts:
+            fail(f"the extender edge set {label!r} did not reach {sorted(want - facts)}")
+        print(f"check xdrop {label}: {len(seeds)} seeds, both kernels == plain (width "
+              f"{width}) == the NumPy replay; reaches {sorted(want)}")
+
+    # a 10 Mbp genome against itself, a seed on the main diagonal: the maximum
+    # sits at both sequence ends and each side's score is its diagonal's sum
+    rng = np.random.default_rng(2027)
+    query, target, seeds = extender_inputs(rng, EXT_GENOME, *EXT_ERRORS, EXT_SEEDS)
+    sub_np = np.asarray(DEFAULT_SCORE_MATRIX, np.int64)
+    s = EXT_GENOME // 3
+    diag = sub_np[target, target]
+    want = [int(diag[s:].sum()), EXT_GENOME - 1 - s, int(diag[:s].sum()), s]
+    td, _, qp, tp, sd = tensors(target, target, np.array([[s, s]]), DEFAULT_SCORE_MATRIX)
+    long_ms, k = cuda_ms(lambda: xdrop_cuda.xdrop_extend_cuda(td, td, qp, tp, sd, 910))
+    if k[0].tolist() != want:
+        fail(f"the 10 Mbp self seed gave {k[0].tolist()}, the closed form {want}")
+    print(f"check xdrop 10 Mbp self seed: kernel == closed form {want}; {long_ms:.3f} ms")
+
+    # -- 11b. the main path -------------------------------------------------------
+    print(f"extender main path: {EXT_GENOME} bp target, {len(query)} bp query, "
+          f"{len(seeds)} seeds (made in {time.perf_counter() - t_phase:.1f} s)", flush=True)
+    kernels = (xdrop_cuda.xdrop_extend_cuda, xdrop_cuda.xdrop_count_cuda)
+
+    def run(seed_pairs, device, q=query, t=target):
+        ex = create_extender(device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ex.extend_async(q, t, EXT_THRESHOLD, seed_pairs)
+        ex.sync()
+        ssps = ex.get_scored_segment_pairs()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return ssps, time.perf_counter() - t0, ex
+
+    for k in kernels:
+        k.launches = 0
+    for p in plains:
+        p.calls = 0
+    torch.cuda.reset_peak_memory_stats()
+    ssps, wall0, ex = run(seeds, "cuda")
+    launches = {k.__name__: k.launches for k in kernels}
+    calls = sum(p.calls for p in plains)
+    peak = torch.cuda.max_memory_allocated()
+    batches = -(-len(seeds) // ex.batch_max)
+    if launches["xdrop_extend_cuda"] != batches or launches["xdrop_count_cuda"] <= 0 or calls:
+        fail(f"the extender's main path launched {launches} for {batches} batches and called "
+             f"a plain version {calls} times")
+    again, wall, _ = run(seeds, "cuda")
+    if [a.astuple() for a in again] != [a.astuple() for a in ssps]:
+        fail("two device runs of the extender gave different lists")
+    Lq, Lt = len(query), len(target)
+    for a in ssps:
+        if not (0 <= a.query_position_in_read and a.query_position_in_read + a.length < Lq
+                and 0 <= a.target_position_in_read and a.target_position_in_read + a.length < Lt
+                and a.score >= EXT_THRESHOLD):
+            fail(f"an SSP outside the sequences or under the threshold: {a}")
+    check = seeds[:EXT_CHECK]
+    dev_check, _, _ = run(check, "cuda")
+    cpu_check, cpu_wall, _ = run(check, "cpu")
+    if [a.astuple() for a in dev_check] != [a.astuple() for a in cpu_check]:
+        fail(f"the first {EXT_CHECK} seeds: the device list ({len(dev_check)}) differs from "
+             f"the CPU path's ({len(cpu_check)})")
+    busy_ms, prof_wall, by_name = profiled(lambda: run(seeds, "cuda"))
+    dev_ms = by_kernel(by_name)
+    print(f"extender main path: {len(ssps)} SSPs ({ex.rescored} seeds rescored by the entropy), "
+          f"two device runs equal, every SSP within both sequences and at least "
+          f"{EXT_THRESHOLD}; the first {EXT_CHECK} seeds: device == CPU path ({len(cpu_check)} "
+          f"SSPs, CPU {cpu_wall:.3f} s); launches {launches}, {calls} plain-version calls; "
+          f"warm wall {wall:.4f} s ({len(seeds) / wall:.1f} seeds/s; first run {wall0:.4f} "
+          f"s); peak device memory {peak / 2**30:.3f} GiB; profiled: {prof_wall * 1e3:.3f} ms "
+          f"wall, device busy {busy_ms:.3f} ms ({100 * busy_ms / (prof_wall * 1e3):.2f} %), "
+          f"xdrop_extend_kernel {dev_ms.get('xdrop_extend_kernel', 0.0):.3f} ms, "
+          f"xdrop_count_kernel {dev_ms.get('xdrop_count_kernel', 0.0):.3f} ms", flush=True)
+
+    # -- 11c. the sample ------------------------------------------------------------
+    from genomeworks_tpu_torch.simulators.genomesim import _BASES
+
+    with tempfile.TemporaryDirectory() as tmp:
+        fa, csv = os.path.join(tmp, "genome.fa"), os.path.join(tmp, "seeds.csv")
+        with open(fa, "w") as f:
+            f.write(">genome\n" + _BASES[target].tobytes().decode() + "\n")
+        np.savetxt(csv, check[:, ::-1], fmt="%d", delimiter=",")
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with redirect_stdout(out):
+            sample_extender.main([fa, csv])
+        sample_wall = time.perf_counter() - t0
+    self_cpu, _, _ = run(check, "cpu", q=target, t=target)
+    if out.getvalue().splitlines() != ssp_lines(self_cpu):
+        fail("the sample's lines differ from the CPU path's on the same genome and seeds")
+    print(f"sample_extender on the card: {out.getvalue().splitlines()[-1]}, its lines == the "
+          f"CPU path's on the genome against itself; {sample_wall:.2f} s (FASTA through the "
+          f"{'native' if native.native_available() else 'Python'} parser)")
+
+    # the kernels at the main path's shapes, for the kernels line
+    qd, td, qp, tp, sd = tensors(query, target, seeds[: ex.batch_max], DEFAULT_SCORE_MATRIX)
+    ext_ms, ext = cuda_ms(lambda: xdrop_cuda.xdrop_extend_cuda(qd, td, qp, tp, sd, 910), 3)
+    e = ext.to(torch.int64)
+    total = e[:, 0] + e[:, 2]
+    nz = torch.nonzero((total >= EXT_THRESHOLD) & (total <= 3 * EXT_THRESHOLD)).squeeze(1)
+    cargs = (qd, td, qp[nz], tp[nz], ext[nz, 3].contiguous(), ext[nz, 1].contiguous())
+    cnt_ms, _ = cuda_ms(lambda: xdrop_cuda.xdrop_count_cuda(*cargs), 3)
+    extended = int((e[:, 1] + 1 + e[:, 3]).sum())
+    counted = int((e[nz, 1] + e[nz, 3] + 1).clamp(min=0).sum())
+    cq, ct, cqp, ctp, csd = tensors(query, target, check, DEFAULT_SCORE_MATRIX)
+    ck_ms, ck = cuda_ms(lambda: xdrop_cuda.xdrop_extend_cuda(cq, ct, cqp, ctp, csd, 910))
+    cp_ms, cp = cuda_ms(lambda: xdrop_plain.xdrop_extend_plain(cq, ct, cqp, ctp, csd, 910))
+    compare("xdrop_extend on the check seeds", (ck,), (cp,))
+    ctot = ck[:, 0].to(torch.int64) + ck[:, 2]
+    cnz = torch.nonzero((ctot >= EXT_THRESHOLD) & (ctot <= 3 * EXT_THRESHOLD)).squeeze(1)
+    cc = (cq, ct, cqp[cnz], ctp[cnz], ck[cnz, 3].contiguous(), ck[cnz, 1].contiguous())
+    cck_ms, kc = cuda_ms(lambda: xdrop_cuda.xdrop_count_cuda(*cc))
+    ccp_ms, pc = cuda_ms(lambda: xdrop_plain.count_matches_plain(*cc))
+    compare("xdrop_count on the check seeds", (kc,), (pc,))
+    seq_bytes = len(query) + len(target) + 256
+    ext_bytes = seq_bytes + ex.batch_max * (8 + 16)
+    cnt_bytes = seq_bytes + len(nz) * (16 + 16)
+    print(f"xdrop kernels at the main path's first batch ({ex.batch_max} seeds): extend "
+          f"{ext_ms:.4f} ms over {extended} positions to the maxima, count {cnt_ms:.4f} ms over "
+          f"{len(nz)} seeds and {counted} positions; on the first {EXT_CHECK} seeds: extend "
+          f"{ck_ms:.4f} ms (plain on the card {cp_ms:.1f} ms), count {cck_ms:.4f} ms (plain "
+          f"{ccp_ms:.1f} ms)", flush=True)
+
+    # -- 11d. the batched Myers distance ------------------------------------------
+    edges_q = ["", "", "A", "ACGTACGTACGTACGTACGTACGTACGTACG"]
+    lengths = [32, 33, 63, 64, 65, 95, 96, 97, 128, 129]
+    erng = np.random.default_rng(13)
+    edges_q += ["".join(erng.choice(list("ACGT"), n)) for n in lengths]
+    edges_t = ["ACGT", "", "", "ACGTTCGTACGAACGTACGTTTACGTACGTACG"]
+    edges_t += [BASES[mutated(erng, encode_bases(s), 0.1, 0.05, 0.05)].tobytes().decode()
+                for s in edges_q[4:]]
+    peq, tc, ql, tl = myers_inputs(edges_q, edges_t)
+    margs = [torch.from_numpy(a).to(dev) for a in (peq.view(np.int32), tc, ql, tl)]
+    mk = myers_score_cuda.myers_score_cuda(*margs)
+    compare("myers_score on the empty queries and word edges", (mk,),
+            (myers_score_plain(*margs),))
+    got = myers_edit_distance_batched(edges_q, edges_t, device="cuda").tolist()
+    if got != [myers_edit_distance_cpu(t, q) for q, t in zip(edges_q, edges_t)]:
+        fail("myers_edit_distance_batched differs from myers_edit_distance_cpu on the empty "
+             "queries and word edges")
+    print("check myers_score on empty queries and word edges: kernel == plain (on the card); "
+          "the batched distances == myers_edit_distance_cpu")
+    peq, tc, ql, tl = myers_inputs([p[0] for p in short], [p[1] for p in short])
+    margs = [torch.from_numpy(a).to(dev) for a in (peq.view(np.int32), tc, ql, tl)]
+    mk_ms, mk = cuda_ms(lambda: myers_score_cuda.myers_score_cuda(*margs), 3)
+    plain_out = list(plain_jobs)
+    mp_ms = 1e3 * sum(sec for _, sec in plain_out)
+    compare("myers_score on phase 5's 1024 pairs of 2 kb", (mk,),
+            (torch.cat([o for o, _ in plain_out]).to(dev),))
+    print(f"check myers_score on phase 5's 1024 pairs of 2 kb: kernel == plain (on the host "
+          f"CPU, 8 chunks of 128, one process a core); kernel {mk_ms:.3f} ms, plain "
+          f"{mp_ms:.1f} ms of host CPU in all", flush=True)
+    words = np.maximum((ql.astype(np.int64) - 1) // 32, 0) + 1
+    myers_ops = MYERS_SCORE_WORD_OPS * int((words * tl).sum())
+    myers_bytes = peq.nbytes + tc.nbytes + ql.nbytes + tl.nbytes + 4 * len(ql)
+    myers_score_cuda.myers_score_cuda.launches = 0
+    myers_mod.myers_score_plain.calls = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dist = myers_edit_distance_batched([p[0] for p in short], [p[1] for p in short],
+                                       device="cuda")
+    myers_wall = time.perf_counter() - t0
+    myers_launches = myers_score_cuda.myers_score_cuda.launches
+    if myers_launches != 1 or myers_mod.myers_score_plain.calls:
+        fail(f"myers_edit_distance_batched launched {myers_launches} times and called the "
+             f"plain version {myers_mod.myers_score_plain.calls} times")
+    oracle = list(oracle_jobs)
+    pool.shutdown()
+    if dist[:32].tolist() != oracle:
+        fail("myers_edit_distance_batched differs from myers_edit_distance_cpu on the 2-kb "
+             "pairs")
+    print(f"myers_edit_distance_batched main path: 1024 pairs of 2 kb, {myers_wall:.4f} s "
+          f"wall, {myers_launches} launch, no plain call; the first 32 == "
+          f"myers_edit_distance_cpu (host, one process per core)")
+
+    def bound(nbytes, ops):
+        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / SCALAR_OPS_PER_S * 1e3
+        return {"bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to else "operations"}
+
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    common = {"route": "cuda", "state": "added in slice 12", "max_abs_err": 0,
+              "library_ms": None}
+    return [{
+        "name": "xdrop_extend_cuda", **common, "source": XDROP_SOURCE,
+        "replaces": "none (XLA in the JAX package: genomeworks_tpu/extender/xdrop.py:220)",
+        "launches": launches["xdrop_extend_cuda"], "ms": ext_ms, "plain_ms": cp_ms,
+        **bound(ext_bytes, XDROP_POS_OPS * extended),
+        "timed_on": f"the main path's first batch, {ex.batch_max} seeds",
+        "plain_timed_on": f"the first {EXT_CHECK} seeds (kernel {ck_ms:.4f} ms)",
+        "self_10mbp_ms": long_ms, "main_path_s": wall, "seeds_per_s": len(seeds) / wall,
+        "device_ms_main_path": dev_ms.get("xdrop_extend_kernel", 0.0),
+    }, {
+        "name": "xdrop_count_cuda", **common, "source": XDROP_SOURCE,
+        "replaces": "none (XLA in the JAX package: genomeworks_tpu/extender/xdrop.py:257)",
+        "launches": launches["xdrop_count_cuda"], "ms": cnt_ms, "plain_ms": ccp_ms,
+        **bound(cnt_bytes, XCOUNT_POS_OPS * counted),
+        "timed_on": f"the first batch's {len(nz)} seeds that need the entropy",
+        "plain_timed_on": f"the first {EXT_CHECK} seeds' {len(cnz)} (kernel {cck_ms:.4f} ms)",
+        "device_ms_main_path": dev_ms.get("xdrop_count_kernel", 0.0),
+    }, {
+        "name": "myers_score_cuda", **common, "source": MYERS_SCORE_SOURCE,
+        "replaces": "none (XLA in the JAX package: genomeworks_tpu/aligner/myers.py:106)",
+        "launches": myers_launches, "ms": mk_ms, "plain_ms": mp_ms,
+        **bound(myers_bytes, myers_ops),
+        "timed_on": "phase 5's 1024 pairs of 2 kb",
+        "plain_timed_on": "the same pairs on the host CPU, 8 chunks of 128 pairs, one thread "
+                          "each (the sum)", "main_path_s": myers_wall,
+    }]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from genomeworks_tpu_torch.ops import (
-        _build, banded_nw_cuda, myers_banded_cuda, poa_cuda, poa_lockstep_cuda,
-        rle_traceback_cuda,
+        _build, banded_nw_cuda, myers_banded_cuda, myers_score_cuda, poa_cuda,
+        poa_lockstep_cuda, rle_traceback_cuda, xdrop_cuda,
     )
 
     aligner_ops = {m.__name__.rsplit(".", 1)[1]: m
@@ -2561,7 +3062,8 @@ def main() -> int:
 
     # -- 1. build -------------------------------------------------------------
     sources = [poa_cuda.SOURCE, poa_lockstep_cuda.SOURCE,
-               *(m.SOURCE for m in aligner_ops.values())]
+               *(m.SOURCE for m in aligner_ops.values()), xdrop_cuda.SOURCE,
+               myers_score_cuda.SOURCE]
     t0 = time.perf_counter()
     _build.build_all(sources)
     print(f"build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s (in parallel)")
@@ -2884,6 +3386,10 @@ def main() -> int:
     mapper_phase(dev)
     print(f"phases 1-10: {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    # -- 11. the extender and the batched Myers distance (slice 12) ----------------
+    extender_entries = extender_phase(dev)
+    print(f"phases 1-11: {time.perf_counter() - t_start:.1f} s", flush=True)
+
     # -- 7. kernels line ------------------------------------------------------
     t_bytes = timed["bytes"] / HBM_BYTES_PER_S * 1e3
     t_ops = timed["ops"] / SCALAR_OPS_PER_S * 1e3
@@ -2926,7 +3432,7 @@ def main() -> int:
         "main_path_s": wall,
         "windows_per_s": len(covid) / wall,
         "tier_counts": tiers,
-    } for name in LK_REPLACES), *aligner_entries, *mode_entries]}
+    } for name in LK_REPLACES), *aligner_entries, *mode_entries, *extender_entries]}
     print(json.dumps(kernels))
     # -- 8. result --------------------------------------------------------------
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,12 @@ Ported so far, each path through its own CUDA kernels:
 - the mapper through ``mapper.map_reads`` and the ``gw_mapper`` tool
   (``tools/gw_mapper.py``): its device stages are PyTorch ops on the card
   (the JAX package's are XLA ops, with no Pallas kernel), and ``--align``
-  runs the aligner's kernels; with the simulators and PAF, SAM and BAM I/O.
+  runs the aligner's kernels; with the simulators and PAF, SAM and BAM I/O;
+- the extender through ``extender.create_extender`` and
+  ``samples/sample_extender.py``: ungapped X-drop seed extension, a warp
+  per seed (``csrc/xdrop.cu``), with the batched Myers edit distance
+  (``aligner.myers_edit_distance_batched``, ``csrc/myers_score.cu``),
+  ``aligner/ukkonen.py`` and the native FASTA parser (``io/native.py``).
 """
 
 __version__ = "0.1.0"

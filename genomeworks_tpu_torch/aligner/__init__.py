@@ -2,9 +2,10 @@
 GenomeWorks ``cudaaligner``).
 
 The PyTorch counterpart of genomeworks_tpu.aligner: the result types, the
-NumPy oracle, the plain PyTorch forward passes and traceback, and the
-``Aligner`` surface over the CUDA kernels. ``myers.py`` and ``ukkonen.py``
-(the unbanded edit-distance helpers) are not ported yet.
+NumPy oracle, the plain PyTorch forward passes and traceback, the
+``Aligner`` surface over the CUDA kernels, and the unbanded edit-distance
+helpers: ``myers.py`` (the CPU oracle, and the batched distances through
+``myers_score_kernel`` on the card) and ``ukkonen.py`` (NumPy).
 """
 
 from genomeworks_tpu_torch.aligner.types import (
@@ -27,3 +28,8 @@ from genomeworks_tpu_torch.aligner.cpu_reference import (
     nw_score_matrix,
     nw_backtrace,
 )
+from genomeworks_tpu_torch.aligner.myers import (
+    myers_edit_distance_cpu,
+    myers_edit_distance_batched,
+)
+from genomeworks_tpu_torch.aligner.ukkonen import ukkonen_cpu, ukkonen_edit_distance_cpu

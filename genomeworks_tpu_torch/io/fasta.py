@@ -6,9 +6,10 @@ common/io/src/kseqpp_fasta_parser.cpp:40-72 (eager whole-file parse, drops
 reads shorter than ``min_sequence_length``, optional deterministic shuffle
 for load balance).
 
-A copy of genomeworks_tpu/io/fasta.py without its native-parser
-branch: a pure-Python eager parser supporting FASTA and FASTQ, plain or
-gzip-compressed, multi-line records.
+A copy of genomeworks_tpu/io/fasta.py: a pure-Python eager parser
+supporting FASTA and FASTQ, plain or gzip-compressed, multi-line records,
+and ``NativeFastaParser`` over the native C++ parser (``io/native.py``,
+native/gwio.cpp), which ``create_fasta_parser`` takes when it is built.
 """
 
 from __future__ import annotations
@@ -93,11 +94,46 @@ def _parse_records(fh) -> list[FastaSequence]:
     return records
 
 
+class NativeFastaParser(FastaParser):
+    """FastaParser backed by the native C++ parser (native/gwio.cpp) —
+    records are materialized lazily; bulk 2-bit packing runs in native
+    threads via :meth:`pack_2bit`."""
+
+    def __init__(self, handle):
+        self._handle = handle
+        self._cache: dict[int, FastaSequence] = {}
+
+    def get_num_seqences(self) -> int:
+        return len(self._handle)
+
+    def __len__(self) -> int:
+        return len(self._handle)
+
+    def get_sequence_by_id(self, read_id: int) -> FastaSequence:
+        rec = self._cache.get(read_id)
+        if rec is None:
+            rec = FastaSequence(self._handle.name(read_id), self._handle.seq(read_id))
+            self._cache[read_id] = rec
+        return rec
+
+    def get_max_sequence_length(self) -> int:
+        return self._handle.max_len()
+
+    def sequences(self) -> list[FastaSequence]:
+        return [self.get_sequence_by_id(i) for i in range(len(self))]
+
+    def pack_2bit(self, first: int = 0, n: int | None = None, max_len: int | None = None):
+        if n is None:
+            n = len(self) - first
+        return self._handle.pack_2bit(first, n, max_len)
+
+
 def create_fasta_parser(
     path: str | Path,
     min_sequence_length: int = 0,
     shuffle: bool = False,
     seed: int = 0,
+    use_native: bool | None = None,
 ) -> FastaParser:
     """Parse a FASTA/FASTQ(.gz) file eagerly.
 
@@ -106,10 +142,23 @@ def create_fasta_parser(
     kseqpp_fasta_parser.cpp:40-72 (which uses std::mt19937(0); we use a
     seeded permutation — the *set* of reads is identical).
 
-    This is the pure-Python parser of genomeworks_tpu/io/fasta.py; the
-    native C++ parser behind it there is not part of the port yet.
+    The native C++ parser (native/gwio.cpp, the counterpart of the
+    reference's kseq++ path) is used when built; ``use_native=False``
+    takes the pure-Python parser, and ``use_native=True`` raises when the
+    native one is unavailable. Both are host parsers: this is not a device
+    fallback.
     """
     import numpy as np
+
+    if use_native is None or use_native:
+        from genomeworks_tpu_torch.io.native import NativeFastaHandle, native_available
+
+        if native_available():
+            return NativeFastaParser(
+                NativeFastaHandle(str(path), min_sequence_length, shuffle)
+            )
+        if use_native:
+            raise RuntimeError("native gwio library unavailable")
 
     with _open_maybe_gz(path) as fh:
         records = _parse_records(fh)

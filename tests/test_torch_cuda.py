@@ -656,3 +656,74 @@ def test_map_reads_on_gpu_equals_host_pipeline(tmp_path):
             assert phase_times()["mapper/expand_sort_chain"]["calls"] >= 3
     assert len(runs["host"]) > 0
     assert runs["gpu"] == runs["host"] == runs["cpu"]
+
+
+XDROP_SETS = ["ends", "drop at xdrop", "ties", "codes 0-7", "xdrop 0", "random 20 kb"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", XDROP_SETS)
+def test_xdrop_kernels_match_plain_on_gpu(case):
+    """The extender's two kernels against their plain versions on the card,
+    on a seeded random set and the tie, clamp and edge sets of
+    ``chip_smoke.xdrop_edge_sets``, each of which must reach what it names."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc")
+    import chip_smoke
+    from genomeworks_tpu_torch.extender.xdrop_plain import count_matches_plain, xdrop_extend_plain
+    from genomeworks_tpu_torch.ops.xdrop_cuda import xdrop_count_cuda, xdrop_extend_cuda
+
+    q, t, seeds, sub, xd, width, want = chip_smoke.xdrop_edge_sets(np.random.default_rng(12))[case]
+    dev = torch.device("cuda")
+    qd, td = (torch.from_numpy(np.ascontiguousarray(a, np.uint8)).to(dev) for a in (q, t))
+    qp, tp = (torch.from_numpy(seeds[:, i].astype(np.int32)).to(dev) for i in (0, 1))
+    sd = torch.from_numpy(np.asarray(sub, np.int32).reshape(-1).copy()).to(dev)
+    launches = xdrop_extend_cuda.launches
+    k = xdrop_extend_cuda(qd, td, qp, tp, sd, xd)
+    p = xdrop_extend_plain(qd, td, qp, tp, sd, xd, width)
+    torch.cuda.synchronize()
+    assert xdrop_extend_cuda.launches == launches + 1
+    assert torch.equal(k, p)
+    kc = xdrop_count_cuda(qd, td, qp, tp, k[:, 3].contiguous(), k[:, 1].contiguous())
+    pc = count_matches_plain(qd, td, qp, tp, p[:, 3].contiguous(), p[:, 1].contiguous(), width)
+    assert torch.equal(kc, pc)
+    assert want <= chip_smoke.xdrop_facts(q, t, seeds, sub, xd, p.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_myers_score_kernel_matches_plain_on_gpu():
+    """myers_score_kernel against its plain version on empty queries, queries
+    at a word's edges and mutated 300-bp pairs, and the batched distances
+    against myers_edit_distance_cpu."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc")
+    from genomeworks_tpu_torch.aligner.myers import (
+        myers_edit_distance_batched, myers_edit_distance_cpu, myers_inputs, myers_score_plain,
+    )
+    from genomeworks_tpu_torch.ops.myers_score_cuda import myers_score_cuda
+
+    rng = np.random.default_rng(21)
+    qs = [_random(rng, n) for n in (0, 1, 31, 32, 33, 63, 64, 65, 96, 97, 300, 300)] + [""]
+    ts = [_mutate(rng, q, 0.1) if q else _random(rng, 9) for q in qs[:-1]] + [""]
+    peq, tc, ql, tl = myers_inputs(qs, ts)
+    args = [torch.from_numpy(a).cuda() for a in (peq.view(np.int32), tc, ql, tl)]
+    out = myers_score_cuda(*args)
+    assert torch.equal(out, myers_score_plain(*args))
+    got = myers_edit_distance_batched(qs, ts).tolist()
+    assert got == [myers_edit_distance_cpu(t, q) for q, t in zip(qs, ts)]
+
+
+@pytest.mark.cuda
+def test_create_extender_without_a_card_raises(monkeypatch):
+    """The extender and the batched Myers distance default to the card and
+    raise without one; the CPU is used only when named."""
+    from genomeworks_tpu_torch.aligner.myers import myers_edit_distance_batched
+    from genomeworks_tpu_torch.core.device import DeviceRuntimeError
+    from genomeworks_tpu_torch.extender import create_extender
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(DeviceRuntimeError):
+        create_extender()
+    with pytest.raises(DeviceRuntimeError):
+        myers_edit_distance_batched(["ACGT"], ["ACG"])
+    assert create_extender(device="cpu").device.type == "cpu"
