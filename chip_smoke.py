@@ -67,8 +67,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    under ``torch.profiler``: the device's busy share of the wall and the
    device time by kernel (a kernel's template instantiations summed).
 4. aligner kernels vs plain versions on the card, bit for bit: the Myers
-   and banded NW forward passes and the RLE traceback (normal and small
-   rcap) on seeded pairs at bands 32 to 1024; every walk consumes its
+   and banded NW forward passes (the NW also with its distance output,
+   against ``banded_nw_final_plain``) and the RLE traceback (normal and
+   small rcap) on seeded pairs at bands 32 to 1024; every walk consumes its
    query and target, and every pair flagged optimal equals ``align_cpu``;
    then the edge sets of the warp layouts (``aligner_edge_sets``: NW bands
    1, 31, 33 and 100, the warp NW's widest band and the block kernel's
@@ -94,7 +95,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    runs launch kernels too, and neither called a plain version.
 6. each aligner kernel alone at the main path's first-pass shapes (the
    rows and columns the aligner packs a chunk at), against its plain
-   version (bit for bit) and its bound; and at the power-of-two shapes it
+   version (bit for bit) and its bound (the NW also timed and checked with
+   its distance output, the sharded aligner step's launch); and at the power-of-two shapes it
    packed at before (M = N = 2048 and 16384), whose outputs must equal
    those at the new shapes; the Myers kernel also at the ``myers_full``
    shape (phase 5's 128 engine pairs at the band that run gave them, W =
@@ -196,9 +198,30 @@ Phases, each of which fails the run (nonzero exit, no result line):
    host, one process per core); the 1,024 pairs through
    ``myers_edit_distance_batched`` are its main path (one launch, no plain
    call).
+12. the multi-device layer (slice 13, ``genomeworks_tpu_torch.parallel``;
+   no new kernel): (a) a one-rank NCCL group on this card (loopback
+   rendezvous), the collectives on the card: all covid windows through
+   ``poa_batch_consensus_sharded`` (golden, every status 0, equal to
+   ``poa_batch_consensus(use_lockstep=False)`` at the same caps), phase 5's
+   1024 pairs of 2 kb through ``aligner_step_sharded`` (codes and fits equal
+   to ``banded_nw_cuda``'s, the first 32 distances to the plain version's
+   and to ``align_cpu``'s wherever the pair fits and its path stays off
+   the band edge), the match counts and the all-reduce against NumPy,
+   ``map_reads_sharded`` on phase 10's 2,500 reads against
+   ``get_overlaps_device_pipeline`` and ``map_reads_multihost`` against
+   ``map_reads``; (b) two gloo ranks in two processes of this script
+   (``--multi-device-rank``), both on this card, gathering through host
+   tensors: the first 1024 covid windows, the aligner step and both
+   mappers on the first 500 reads (1 MB index ranges, so the index pairs
+   split over the ranks), each rank's results equal to run (a)'s on the
+   same inputs. Both runs launch the per-window POA kernel and the NW, call
+   no plain version, and print their walls beside the card's name and power
+   limit.
 7. a ``kernels`` JSON line with each kernel's launches, error against its
    plain version, times and bound (the mapper adds no entry; phase 11 adds
-   ``xdrop_extend_cuda``, ``xdrop_count_cuda`` and ``myers_score_cuda``).
+   ``xdrop_extend_cuda``, ``xdrop_count_cuda`` and ``myers_score_cuda``;
+   phase 12 adds ``launches_multi_device`` to the per-window POA kernel's
+   and the NW's, and the NW's ``dist_ms``).
 8. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of genomeworks_tpu or JAX.
@@ -806,14 +829,16 @@ def aligner_edge_plain(spec, dev):
     """The plain versions on one aligner edge set, on ``dev``: for each
     plane (a forward at a band, or a given plane), (its name, W, the
     forward's outputs or None, {rcap: the traceback's outputs}) at the
-    set's rcaps and at one that holds every run."""
+    set's rcaps and at one that holds every run. The NW's outputs are those
+    of its launch with the distance: (dist, codes, fits)."""
     from genomeworks_tpu_torch.aligner.aligner import pack_pairs, pack_shape
-    from genomeworks_tpu_torch.aligner.banded_nw import band_offset, banded_nw_forward_plain
+    from genomeworks_tpu_torch.aligner.banded_nw import band_offset, banded_nw_final_plain
     from genomeworks_tpu_torch.aligner.myers_banded_model import myers_banded_plain
     from genomeworks_tpu_torch.aligner.rle_traceback import rle_traceback_plain
     from genomeworks_tpu_torch.core.bucketing import next_pow2
 
-    plain = {"myers_banded_cuda": myers_banded_plain, "banded_nw_cuda": banded_nw_forward_plain}
+    # the NW's plain version with the distance output: (dist, codes, fits)
+    plain = {"myers_banded_cuda": myers_banded_plain, "banded_nw_cuda": banded_nw_final_plain}
     planes = []
     if spec["pairs"]:
         s = next_pow2(max(len(x) for pair in spec["pairs"] for x in pair))
@@ -821,7 +846,7 @@ def aligner_edge_plain(spec, dev):
         for W in spec["bands"]:
             for fwd in spec["forwards"]:
                 out = plain[fwd](q, t, qlen, tlen, W)
-                planes.append((f"{fwd} W={W}", W, out, out[0], qlen, tlen))
+                planes.append((f"{fwd} W={W}", W, out, out[-2], qlen, tlen))
     for codes, ql, tl, W in spec["planes"]:
         planes.append((f"a given plane, W={W}", W, None,
                        *(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (codes, ql, tl))))
@@ -873,9 +898,15 @@ def aligner_edge_compare(spec, dev, warp_max_band, err=None, plain=None):
                 name, pW, ref, _ = plain[len(planes) - 1]
                 if (name, pW) != (f"{fwd} W={W}", W):
                     fail(f"{label}: the plain outputs are of {name}, not {fwd} W={W}")
+                ref = on_dev(ref)
                 err[fwd] = max(err.get(fwd, 0), compare(f"{fwd} on {label}, W={W}", out,
-                                                        on_dev(ref)))
+                                                        ref[-2:]))
                 if fwd == "banded_nw_cuda":
+                    # the launch with the distance output: the same codes and
+                    # fits, and the plain version's distance
+                    err[fwd] = max(err[fwd], compare(
+                        f"{fwd} with dist on {label}, W={W}",
+                        kern[fwd](q, t, qlen, tlen, W, with_dist=True), ref))
                     facts.add("a band not a multiple of 32" if W % 32 else "a band of 32s")
                     facts.add("the warp kernel's widest band" if W == warp_max_band else
                               "the block kernel" if W > warp_max_band else "the warp kernel")
@@ -915,7 +946,9 @@ def aligner_phases(dev, ops, edge_plain):
     outputs (``aligner_edge_plain_job``)."""
     from genomeworks_tpu_torch.aligner import create_aligner
     from genomeworks_tpu_torch.aligner.aligner import pack_pairs, pack_shape
-    from genomeworks_tpu_torch.aligner.banded_nw import band_offset, banded_nw_forward_plain
+    from genomeworks_tpu_torch.aligner.banded_nw import (
+        band_offset, banded_nw_final_plain, banded_nw_forward_plain,
+    )
     from genomeworks_tpu_torch.aligner.myers_banded_model import myers_banded_plain
     from genomeworks_tpu_torch.aligner.rle_traceback import (
         RUN_MASK, rle_traceback_plain, runs_to_states,
@@ -948,6 +981,10 @@ def aligner_phases(dev, ops, edge_plain):
             codes, fits = kern[fwd](q, t, qlen, tlen, W)
             err[fwd] = max(err[fwd], compare(f"{fwd} W={W}", (codes, fits),
                                              plain[fwd](q, t, qlen, tlen, W)))
+            if fwd == "banded_nw_cuda":
+                err[fwd] = max(err[fwd], compare(
+                    f"{fwd} with dist W={W}", kern[fwd](q, t, qlen, tlen, W, with_dist=True),
+                    banded_nw_final_plain(q, t, qlen, tlen, W)))
             for cap in (rcap, 4):
                 out = kern[TB](codes, qlen, tlen, dlo, W, cap)
                 err[TB] = max(err[TB], compare(f"{TB} on {fwd} W={W} rcap={cap}", out,
@@ -1022,11 +1059,11 @@ def aligner_phases(dev, ops, edge_plain):
         plain-version calls it made."""
         for k in kern.values():
             k.launches = 0
-        for p in plain.values():
+        for p in (*plain.values(), banded_nw_final_plain):
             p.calls = 0
         out = fn()
         return out, {n: k.launches for n, k in kern.items()}, \
-            sum(p.calls for p in plain.values())
+            sum(p.calls for p in (*plain.values(), banded_nw_final_plain))
 
     (main_alns, main_wall, _), launches, plain_calls = counted(lambda: run(every))
     if launches != MAIN_LAUNCHES:
@@ -1073,7 +1110,22 @@ def aligner_phases(dev, ops, edge_plain):
         q, t, qlen, tlen = pack_pairs(pairs, M, N, dev)
         dlo = band_offset(qlen, tlen, W)
         ms, out = cuda_ms(lambda: ops[fwd]._launch(libs[fwd], q, t, qlen, tlen, W), reps=3)
-        p_ms, p_out = cuda_ms(lambda: plain[fwd](q, t, qlen, tlen, W))
+        if fwd == "banded_nw_cuda":
+            # the plain version with the distance (its codes and fits are
+            # banded_nw_forward_plain's); the kernel with the distance output
+            # (the sharded aligner step's launch) against it, and timed
+            p_ms, p_dist = cuda_ms(lambda: banded_nw_final_plain(q, t, qlen, tlen, W))
+            p_out = p_dist[1:]
+            dist_ms, k_dist = cuda_ms(
+                lambda: ops[fwd]._launch(libs[fwd], q, t, qlen, tlen, W, True), reps=3)
+            err[fwd] = max(err[fwd], compare(f"{fwd} with dist at the main path's shape",
+                                             k_dist, p_dist))
+            timed_dist = {"dist_ms": dist_ms, "dist_timed_on": f"{len(pairs)} main-path pairs, "
+                          f"M={M}, N={N}, W={W}, the launch with the distance output"}
+            print(f"time {fwd} with dist: {dist_ms:.4f} ms (without: {ms:.4f} ms); dist == "
+                  f"plain", flush=True)
+        else:
+            p_ms, p_out = cuda_ms(lambda: plain[fwd](q, t, qlen, tlen, W))
         err[fwd] = max(err[fwd], compare(f"{fwd} at the main path's shape", out, p_out))
         # what this run's data needs: the bases up to qlen and tlen, the
         # lengths, the code words of the rows up to qlen, fits; the work of
@@ -1171,6 +1223,7 @@ def aligner_phases(dev, ops, edge_plain):
             "timed_on": shapes[name],
             "ms_at_pow2_shape": tm["old_ms"],
             **({"myers_full": myers_full} if name == MY else {}),
+            **(timed_dist if name == "banded_nw_cuda" else {}),
             "main_path_s": main_wall,
             "alignments_per_s": len(every) / main_wall,
         })
@@ -2429,7 +2482,8 @@ def cigar_consumes(cigar: str, qspan: int, tspan: int) -> bool:
 
 def mapper_phase(dev, n_reads=MAPPER_READS, genome_len=MAPPER_GENOME, align_reads=MAPPER_ALIGN_READS):
     """Phase 10: the port's mapper through ``gw_mapper`` and ``map_reads`` on
-    simulated reads of a bacterial genome; every gate fails the run."""
+    simulated reads of a bacterial genome; every gate fails the run.
+    Returns the reads, [(name, read)]."""
     import io
     import tempfile
 
@@ -2567,6 +2621,7 @@ def mapper_phase(dev, n_reads=MAPPER_READS, genome_len=MAPPER_GENOME, align_read
               f"every CIGAR consumes its spans; launches {launches}, {calls} plain-version "
               f"calls; {align_wall:.3f} s")
     print(f"phase 10: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return reads
 
 
 # -- slice 12: the extender and the batched Myers distance --------------------------
@@ -3032,10 +3087,347 @@ def extender_phase(dev):
     }]
 
 
+# -- slice 13: the multi-device layer ------------------------------------------------
+
+#: run (b)'s subset of the main path: the first covid windows and mapper reads
+MD_WINDOWS = 1024
+MD_READS = 500
+#: the multi-process mapping's index budget (MB) on the subset: 5 ranges, 15
+#: index pairs, so the round robin splits them
+MD_INDEX_MB = 1
+#: the seconds a run (b) rank may take, and its process group's timeout
+MD_TIMEOUT = 240
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def md_pairs():
+    """Phase 5's 1024 pairs of 2 kb, packed (on the host) as the aligner
+    packs their bucket, and the band ``create_aligner(max_bandwidth=1024)``
+    gives them first (the largest over the pairs): (q, t, qlen, tlen, W,
+    pairs)."""
+    from genomeworks_tpu_torch.aligner import create_aligner
+    from genomeworks_tpu_torch.aligner.aligner import pack_pairs, pack_shape
+    from genomeworks_tpu_torch.core.bucketing import next_pow2
+
+    pairs = random_pairs(np.random.default_rng(2025), 1024, 2000, 0.04, 0.01, 0.01)
+    a = create_aligner(max_bandwidth=1024, device="cpu")
+    for qs, ts in pairs:
+        a.add_alignment(qs, ts)
+    W = max(next_pow2(min(a._initial_band(e), a._full_band(e))) for e in a._entries)
+    q, t, qlen, tlen = (x.numpy() for x in pack_pairs(pairs, *pack_shape(pairs, 2048), "cpu"))
+    return q, t, qlen, tlen, W, pairs
+
+
+def md_counted(fn):
+    """fn() with the counts of the sharded paths' kernels and plain versions
+    set to 0 just before: (its result, wall s, launches by kernel, plain
+    calls)."""
+    from genomeworks_tpu_torch.aligner.banded_nw import (
+        banded_nw_final_plain, banded_nw_forward_plain,
+    )
+    from genomeworks_tpu_torch.ops.banded_nw_cuda import banded_nw_cuda
+    from genomeworks_tpu_torch.ops.poa_cuda import poa_consensus_cuda
+    from genomeworks_tpu_torch.poa.torch_poa import poa_consensus_plain
+
+    kernels = (poa_consensus_cuda, banded_nw_cuda)
+    plains = (poa_consensus_plain, banded_nw_forward_plain, banded_nw_final_plain)
+    for k in kernels:
+        k.launches = 0
+    for p in plains:
+        p.calls = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, {k.__name__: k.launches for k in kernels}, sum(p.calls for p in plains)
+
+
+def md_subset(mesh, covid, small_fasta):
+    """The sharded paths on run (b)'s subset on ``mesh``: POA on the first
+    MD_WINDOWS covid windows, the aligner step on phase 5's 1024 pairs of
+    2 kb, ``map_reads_sharded`` and ``map_reads_multihost`` (MD_INDEX_MB
+    index ranges) on the first MD_READS reads. Returns (results, launches,
+    plain calls); the move codes as a digest."""
+    import dataclasses
+    import hashlib
+
+    from genomeworks_tpu_torch.io import create_fasta_parser
+    from genomeworks_tpu_torch.mapper import MapperParams
+    from genomeworks_tpu_torch.parallel.multihost import map_reads_multihost
+    from genomeworks_tpu_torch.parallel.sharded import (
+        aligner_step_sharded, poa_batch_consensus_sharded,
+    )
+    from genomeworks_tpu_torch.parallel.sharded_mapper import map_reads_sharded
+
+    q, t, qlen, tlen, W, _ = md_pairs()
+    parser = create_fasta_parser(small_fasta)
+    # no filtering: at 1e-5 an index of 1 MB filters every representation
+    params = MapperParams(index_size_mb=MD_INDEX_MB, target_index_size_mb=MD_INDEX_MB,
+                          filtering_parameter=1.0)
+
+    def run():
+        poa = poa_batch_consensus_sharded(covid[:MD_WINDOWS], mesh)
+        final, codes, fits = aligner_step_sharded(mesh, q, t, qlen, tlen, W)
+        sharded = map_reads_sharded(parser, parser, mesh, all_to_all=True)
+        multi = map_reads_multihost(parser, parser, params, device=mesh.device)
+        return poa, (final, codes, fits), sharded, multi
+
+    (poa, (final, codes, fits), sharded, multi), wall, launches, calls = md_counted(run)
+    return {
+        "poa": (poa[0], [c.tolist() for c in poa[1]], poa[2]),
+        "final": final.cpu(), "fits": fits.cpu(), "codes_shape": tuple(codes.shape),
+        "codes_sha256": hashlib.sha256(codes.cpu().numpy().tobytes()).hexdigest(),
+        "sharded": [dataclasses.astuple(o) for o in sharded],
+        "multi": [dataclasses.astuple(o) for o in multi],
+        "wall": wall, "W": W,
+    }, launches, calls
+
+
+def multi_device_rank(rank, world, port, tmp) -> int:
+    """One rank of phase 12's run (b): a gloo group of ``world`` ranks, every
+    rank computing on card 0, gathering through host tensors; runs
+    ``md_subset`` and writes its results to ``tmp``/rank<rank>.pt."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from genomeworks_tpu_torch.parallel.mesh import make_mesh
+    from genomeworks_tpu_torch.parallel.multihost import initialize_distributed
+    from genomeworks_tpu_torch.poa.windows import load_window_file
+
+    rank, world = int(rank), int(world)
+    if not initialize_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo",
+                                  timeout=timedelta(seconds=MD_TIMEOUT)):
+        raise RuntimeError("run (b) needs more than one rank")
+    try:
+        mesh = make_mesh()
+        if (mesh.rank, mesh.size, mesh.device.type, mesh.comm_device.type) != \
+                (rank, world, "cuda", "cpu"):
+            raise RuntimeError(f"rank {rank}: unexpected mesh {mesh}")
+        covid = load_window_file(os.path.join(DATA, "poa_windows_covid.txt.gz"))[:MD_WINDOWS]
+        out, launches, calls = md_subset(mesh, covid, os.path.join(tmp, "small.fa"))
+        torch.save({"out": out, "launches": launches, "calls": calls},
+                   os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def multi_device_phase(dev, covid, golden, reads, smi):
+    """Phase 12: the multi-device layer (slice 13). Run (a): a one-rank NCCL
+    group on this card, every sharded path at full size against its
+    single-device path; run (b): two gloo ranks in two processes on this
+    card, on a subset, against run (a). Returns (run (a)'s launches on the
+    full-size paths, its launches on the subset, run (b)'s by rank)."""
+    import dataclasses
+    import hashlib
+    import shutil
+    import tempfile
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from genomeworks_tpu_torch.aligner.banded_nw import (
+        band_offset, banded_nw_final_plain, unpack_codes,
+    )
+    from genomeworks_tpu_torch.aligner.cpu_reference import align_cpu
+    from genomeworks_tpu_torch.aligner.rle_traceback import rle_traceback_plain
+    from genomeworks_tpu_torch.io import create_fasta_parser, write_fasta
+    from genomeworks_tpu_torch.mapper import MapperParams, map_reads
+    from genomeworks_tpu_torch.mapper.device_pipeline import (
+        build_index_device, get_overlaps_device_pipeline,
+    )
+    from genomeworks_tpu_torch.ops.banded_nw_cuda import banded_nw_cuda
+    from genomeworks_tpu_torch.parallel.mesh import make_mesh
+    from genomeworks_tpu_torch.parallel.multihost import map_reads_multihost
+    from genomeworks_tpu_torch.parallel.sharded import (
+        anchor_count_allreduce, matcher_sharded_counts, poa_batch_consensus_sharded,
+    )
+    from genomeworks_tpu_torch.parallel.sharded_mapper import map_reads_sharded
+    from genomeworks_tpu_torch.poa.torch_poa import poa_batch_consensus
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="gw_md_")
+    procs = []
+    try:
+        small, full = os.path.join(tmp, "small.fa"), os.path.join(tmp, "full.fa")
+        write_fasta(reads[:MD_READS], small)
+        write_fasta(reads, full)
+        q, t, qlen, tlen, W, pairs = md_pairs()
+
+        # -- 12a. one NCCL rank on this card ----------------------------------------
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                                world_size=1, rank=0, timeout=timedelta(seconds=60))
+        try:
+            mesh = make_mesh()
+            if (mesh.size, mesh.comm_device.type, dist.get_backend()) != (1, "cuda", "nccl"):
+                fail(f"run (a): unexpected mesh {mesh}")
+            res_a, sub_launches, sub_calls = md_subset(mesh, covid, small)
+            full_parser = create_fasta_parser(full)
+            params = MapperParams(filtering_parameter=1.0)
+
+            def full_paths():
+                cons = poa_batch_consensus_sharded(covid, mesh)
+                rq = np.sort(np.random.default_rng(5).integers(0, 1 << 30, 1 << 20))
+                rt = np.sort(np.random.default_rng(6).integers(0, 1 << 30, 1 << 22))
+                counts = (matcher_sharded_counts(mesh, rq, rt),
+                          anchor_count_allreduce(mesh, np.arange(1 << 16, dtype=np.int64)),
+                          rq, rt)
+                return cons, counts
+
+            (cons_a, counts), _, full_launches, full_calls = md_counted(full_paths)
+            (sharded_full, sharded_wall, map_launches, map_calls) = md_counted(
+                lambda: map_reads_sharded(full_parser, full_parser, mesh, all_to_all=True))
+            multi_full = map_reads_multihost(full_parser, full_parser, params, device=dev)
+            # walls: the sharded covid POA (a second, warm run) against the
+            # single-device per-window path at the same caps
+            _, poa_wall, poa_launches, poa_calls = md_counted(
+                lambda: poa_batch_consensus_sharded(covid, mesh))
+        finally:
+            dist.destroy_process_group()
+        launches_a = {k: sub_launches[k] + full_launches[k] + map_launches[k] + poa_launches[k]
+                      for k in sub_launches}
+        calls_a = sub_calls + full_calls + map_calls + poa_calls
+        if calls_a or min(launches_a.values()) < 1:
+            fail(f"run (a) launched {launches_a} and called a plain version {calls_a} times")
+
+        # run (a)'s results against the single-device paths
+        cons, cov, st = cons_a
+        if any(st) or cons != golden:
+            fail(f"run (a): sharded covid POA: {sum(1 for x in st if x)} statuses not 0, "
+                 f"{sum(c != g for c, g in zip(cons, golden))} consensuses differ from the golden")
+        L = ((max(len(r) for w in covid for r in w) + 63) // 64) * 64
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single = poa_batch_consensus(covid, max_nodes=3 * L, max_edges=50, max_alignments=50,
+                                     device="cuda", use_lockstep=False)
+        torch.cuda.synchronize()
+        single_wall = time.perf_counter() - t0
+        if single[0] != cons or single[2] != st or \
+                any(not np.array_equal(a, b) for a, b in zip(single[1], cov)):
+            fail("run (a): the sharded covid POA differs from poa_batch_consensus")
+        if res_a["poa"][0] != cons[:MD_WINDOWS]:
+            fail("run (a): the sharded POA on the first windows differs from the whole file's")
+        mq, mt, ql_t, tl_t = (torch.from_numpy(x).to(dev) for x in (q, t, qlen, tlen))
+        ref_codes, ref_fits = banded_nw_cuda(mq, mt, ql_t, tl_t, W)
+        ref_codes = unpack_codes(ref_codes, q.shape[1])
+        if hashlib.sha256(ref_codes.cpu().numpy().tobytes()).hexdigest() != \
+                res_a["codes_sha256"] or not torch.equal(ref_fits.cpu(), res_a["fits"]):
+            fail("run (a): the sharded aligner step's codes or fits differ from banded_nw_cuda")
+        p_final, p_codes, _ = banded_nw_final_plain(mq[:32], mt[:32], ql_t[:32], tl_t[:32], W)
+        if not torch.equal(p_final.cpu(), res_a["final"][:32]):
+            fail("run (a): the sharded aligner step's distances differ from the plain version's")
+        # the exact distance (align_cpu's path) where a pair fits and its
+        # banded path stays off the band edge; never below it elsewhere
+        edge = rle_traceback_plain(p_codes, ql_t[:32], tl_t[:32],
+                                   band_offset(ql_t[:32], tl_t[:32], W), W,
+                                   int((ql_t + tl_t).max()))[3].cpu().numpy()
+        exact = [int((path != 0).sum()) for path in oracle(pairs[:32], align_cpu)]
+        fits32 = res_a["fits"][:32].numpy()
+        final32 = res_a["final"][:32].numpy()
+        n_eq = 0
+        for b in range(32):
+            if final32[b] < exact[b] or (fits32[b] and not edge[b] and final32[b] != exact[b]):
+                fail(f"run (a): pair {b}'s banded distance {final32[b]} against the exact "
+                     f"{exact[b]} (fits {fits32[b]}, on the band edge {edge[b]})")
+            n_eq += int(final32[b] == exact[b])
+        matched, total, rq, rt = counts
+        want = int((np.searchsorted(rt, rq, "right") - np.searchsorted(rt, rq, "left")).sum())
+        if int(matched[0]) != want or int(total[0]) != (1 << 16) * ((1 << 16) - 1) // 2:
+            fail(f"run (a): the counts {int(matched[0])}, {int(total[0])} against NumPy's")
+        idx = build_index_device(full_parser, 0, len(full_parser), device=dev)
+        single_ov = get_overlaps_device_pipeline(idx, idx, all_to_all=True)
+        del idx
+        if sharded_full != single_ov or not single_ov:
+            fail("run (a): map_reads_sharded differs from get_overlaps_device_pipeline")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mapped = map_reads(full_parser, full_parser, params, device=dev)
+        torch.cuda.synchronize()
+        map_wall = time.perf_counter() - t0
+        if multi_full != mapped:
+            fail("run (a): map_reads_multihost differs from map_reads")
+        small_parser = create_fasta_parser(small)
+        small_params = MapperParams(index_size_mb=MD_INDEX_MB, target_index_size_mb=MD_INDEX_MB,
+                                    filtering_parameter=1.0)
+        if not res_a["multi"] or not res_a["sharded"] or res_a["multi"] != [
+                dataclasses.astuple(o) for o in map_reads(small_parser, small_parser,
+                                                          small_params, device=dev)]:
+            fail(f"run (a): map_reads_multihost on the subset ({len(res_a['multi'])} overlaps) "
+                 f"differs from map_reads, or a subset mapping is empty")
+        print(f"{smi}: phase 12 run (a), a one-rank NCCL group on cuda:0: all {len(covid)} "
+              f"covid windows through poa_batch_consensus_sharded == golden, every status 0, "
+              f"== poa_batch_consensus(use_lockstep=False) at the same caps (N = {3 * L}, "
+              f"E = A = 50); aligner_step_sharded on 1024 pairs of 2 kb at W = {W}: codes and "
+              f"fits == banded_nw_cuda, the first 32 distances == the plain version's, "
+              f"{n_eq} of 32 == align_cpu's (every fitting pair off the band edge); matcher "
+              f"counts and all-reduce == NumPy; map_reads_sharded on {len(reads)} reads == "
+              f"get_overlaps_device_pipeline ({len(single_ov)} overlaps); map_reads_multihost "
+              f"== map_reads ({len(mapped)}); launches {launches_a}, no plain call", flush=True)
+        print(f"{smi}: walls: sharded covid POA (one NCCL rank) {poa_wall:.4f} s, "
+              f"{len(covid) / poa_wall:.1f} windows/s; poa_batch_consensus(use_lockstep=False) "
+              f"{single_wall:.4f} s; map_reads_sharded {sharded_wall:.4f} s on {len(reads)} "
+              f"reads; map_reads {map_wall:.4f} s; the subset's paths {res_a['wall']:.4f} s",
+              flush=True)
+
+        # -- 12b. two gloo ranks in two processes on this card -------------------------
+        torch.cuda.empty_cache()
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--multi-device-rank", str(r), "2", str(port), tmp],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        logs = [p.communicate(timeout=MD_TIMEOUT)[0] for p in procs]
+        wall_b = time.perf_counter() - t0
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                fail(f"run (b) rank {r} exited {p.returncode}:\n{log[-3000:]}")
+        launches_b = []
+        for r in range(2):
+            got = torch.load(os.path.join(tmp, f"rank{r}.pt"))
+            out = got["out"]
+            if got["calls"] or min(got["launches"].values()) < 1:
+                fail(f"run (b) rank {r} launched {got['launches']} and called a plain "
+                     f"version {got['calls']} times")
+            for key in ("poa", "codes_sha256", "codes_shape", "sharded", "multi", "W"):
+                if out[key] != res_a[key]:
+                    fail(f"run (b) rank {r}: {key} differs from run (a)'s")
+            for key in ("final", "fits"):
+                if not torch.equal(out[key], res_a[key]):
+                    fail(f"run (b) rank {r}: {key} differs from run (a)'s")
+            launches_b.append(got["launches"])
+            print(f"{smi}: phase 12 run (b) rank {r} of 2 (gloo, cuda:0): the first "
+                  f"{MD_WINDOWS} covid windows, the 1024 pairs' aligner step, "
+                  f"map_reads_sharded and map_reads_multihost ({len(out['multi'])} overlaps) "
+                  f"on the first {MD_READS} reads == run (a)'s; the paths {out['wall']:.4f} s; "
+                  f"launches {got['launches']}, no plain call", flush=True)
+        print(f"run (b): {wall_b:.1f} s with the processes' start; phase 12: "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches_a, sub_launches, launches_b
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--multi-device-rank"]:  # a rank of phase 12's run (b)
+        return multi_device_rank(*sys.argv[2:6])
     from genomeworks_tpu_torch.ops import (
         _build, banded_nw_cuda, myers_banded_cuda, myers_score_cuda, poa_cuda,
         poa_lockstep_cuda, rle_traceback_cuda, xdrop_cuda,
@@ -3383,12 +3775,24 @@ def main() -> int:
     print(f"phases 1-9: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # -- 10. the mapper (slice 11) -------------------------------------------------
-    mapper_phase(dev)
+    mapper_read_list = mapper_phase(dev)
     print(f"phases 1-10: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # -- 11. the extender and the batched Myers distance (slice 12) ----------------
     extender_entries = extender_phase(dev)
     print(f"phases 1-11: {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # -- 12. the multi-device layer (slice 13) ---------------------------------------
+    md_full, md_sub, md_b = multi_device_phase(dev, covid, golden, mapper_read_list, smi)
+    print(f"phases 1-12: {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    def md_launches(name):
+        return {"run_a_full_size": md_full[name], "run_a_subset": md_sub[name],
+                "run_b_by_rank": [r[name] for r in md_b]}
+
+    for e in aligner_entries:
+        if e["name"] == "banded_nw_cuda":
+            e["launches_multi_device"] = md_launches("banded_nw_cuda")
 
     # -- 7. kernels line ------------------------------------------------------
     t_bytes = timed["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -3414,6 +3818,7 @@ def main() -> int:
         "main_path_s": wall1,
         "windows_per_s": len(covid) / wall1,
         "launches_use_lockstep_false": launches1["poa_consensus_cuda"],
+        "launches_multi_device": md_launches("poa_consensus_cuda"),
     }, *({
         "name": name,
         "route": "cuda",

@@ -20,7 +20,9 @@ NW and the RLE traceback) on one card.
    same source and macros are one library). Prints each build's registers,
    shared memory and spills of every instantiation as ptxas reports them.
    The parent and the versions must have this checkout's launch functions
-   (``myers_banded_launch``, ``banded_nw_launch``, ``rle_traceback_launch``).
+   (``myers_banded_launch``, ``banded_nw_launch``, ``rle_traceback_launch``),
+   or, for the parent's NW, the ``banded_nw_launch`` before its ``dist``
+   output (the script binds either).
 2. The main path's first-pass pairs (``chip_smoke`` phase 5's seed: 512
    pairs of 2 kb, 32 of 10 kb, W = 64): the Myers kernel on the 2-kb pairs
    at W = 64 and at bands 128 to 1024, and at the ``myers_full`` shape (the
@@ -31,7 +33,10 @@ NW and the RLE traceback) on one card.
    (``pack_shape``) and at the power-of-two shapes it packed at before
    (M = N = 2048 and 16384), then the NW at bands 128 to 1024 on the 10-kb
    pairs. Each build in turns (parent, this, the ``--myers`` versions, then
-   in reverse; the versions on the Myers shapes only), every launch timed
+   in reverse; the versions on the Myers shapes only; in each of this
+   build's turns the NW also with its distance output, "this+dist", whose
+   codes and fits must equal the others' and whose distances must equal
+   ``banded_nw_final_plain``'s), every launch timed
    with CUDA events (median of 5); every turn's outputs must equal the
    first turn's at the same shape, the two shapes' traceback outputs must be
    equal, and this build's Myers outputs must equal ``myers_banded_plain``
@@ -67,7 +72,10 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
 from genomeworks_tpu_torch.aligner.aligner import pack_pairs, pack_shape  # noqa: E402
-from genomeworks_tpu_torch.aligner.banded_nw import band_offset  # noqa: E402
+from genomeworks_tpu_torch.aligner.banded_nw import (  # noqa: E402
+    band_offset,
+    banded_nw_final_plain,
+)
 from genomeworks_tpu_torch.aligner.myers_banded_model import myers_banded_plain  # noqa: E402
 from genomeworks_tpu_torch.ops import _build  # noqa: E402
 from genomeworks_tpu_torch.ops import banded_nw_cuda as nw  # noqa: E402
@@ -169,6 +177,28 @@ def main() -> int:
                     getattr(lib, fn).restype = ctypes.c_int
         libs[(key, name)] = lib
     print(f"the warp NW takes bands up to {libs[('nw', 'this')].banded_nw_warp_max_band()}")
+    # a parent NW without the dist output takes one pointer less
+    old_nw = set()
+    if args.parent:
+        with open(jobs[("nw", "parent")][0]) as f:
+            if "void* dist" not in f.read():
+                old_nw.add("parent")
+                libs[("nw", "parent")].banded_nw_launch.argtypes = \
+                    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+    def nw_launch(name, q, t, qlen, tlen, wide, with_dist=False):
+        lib = libs[("nw", name)]
+        if name not in old_nw:
+            return nw._launch(lib, q, t, qlen, tlen, wide, with_dist)
+        B, M = q.shape
+        codes = torch.empty((B, nw.num_words(M), wide), dtype=torch.int32, device=q.device)
+        fits = torch.empty(B, dtype=torch.bool, device=q.device)
+        rc = lib.banded_nw_launch(q.data_ptr(), t.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
+                                  codes.data_ptr(), fits.data_ptr(), B, M, t.shape[1], wide,
+                                  torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"the parent's banded_nw_launch failed: CUDA error {rc}")
+        return codes, fits
 
     rng = np.random.default_rng(2025)
     short = chip_smoke.random_pairs(rng, 1024, 2000, 0.04, 0.01, 0.01)[:512]
@@ -200,6 +230,7 @@ def main() -> int:
     names = (["parent"] if args.parent else []) + ["this"] + versions
     order = names + names[::-1]
     ref, times, ok = {}, {}, True
+    dists = {}  # this build's distances on the 10-kb pairs, by shape
 
     def timed(name, kernel, key, fn):
         nonlocal ok
@@ -217,7 +248,11 @@ def main() -> int:
                 (cases.items() if all_kernels else ()):
             if bucket == "10 kb":
                 codes = timed(name, "nw", (bucket, shape, M, N, W),
-                              lambda: nw._launch(libs[("nw", name)], q, t, qlen, tlen, W))[0]
+                              lambda: nw_launch(name, q, t, qlen, tlen, W))[0]
+                if name == "this":
+                    timed("this+dist", "nw", (bucket, shape, M, N, W),
+                          lambda: nw_launch(name, q, t, qlen, tlen, W, True)[1:])
+                    dists[(bucket, shape, W)] = nw_launch(name, q, t, qlen, tlen, W, True)[0]
             else:
                 codes = planes[(bucket, shape)]
             cap = int((qlen + tlen).max())
@@ -227,8 +262,19 @@ def main() -> int:
         q, t, qlen, tlen, _, M, N = cases[("10 kb", "new")]
         for wide in (128, 256, 512, 1024) if all_kernels else ():
             timed(name, "nw", ("10 kb", "new", M, N, wide),
-                  lambda: nw._launch(libs[("nw", name)], q, t, qlen, tlen, wide))
+                  lambda: nw_launch(name, q, t, qlen, tlen, wide))
+            if name == "this":
+                timed("this+dist", "nw", ("10 kb", "new", M, N, wide),
+                      lambda: nw_launch(name, q, t, qlen, tlen, wide, True)[1:])
         print(f"turn {turn + 1} ({name}) done; outputs {'equal' if ok else 'DIFFER'}", flush=True)
+    # the distance output against its plain version (on the card) at the main
+    # path's shape; the shape before gives the same distances
+    q, t, qlen, tlen, _, M, N = cases[("10 kb", "new")]
+    p_dist = banded_nw_final_plain(q, t, qlen, tlen, W)[0]
+    for key, d in dists.items():
+        eq = torch.equal(d, p_dist)
+        ok &= eq
+        print(f"nw dist {key}: == banded_nw_final_plain: {eq}")
     for (kernel, (bucket, shape, M, N, w)), by_name in times.items():
         print(f"time {kernel} {bucket} M={M} N={N} W={w}: " + "; ".join(
             f"{name} " + ", ".join(f"{x:.4f}" for x in ts) for name, ts in by_name.items())

@@ -7,7 +7,7 @@ the reference becomes a CUDA kernel written for ``sm_90a`` (sources under
 plain PyTorch version beside it, which the wrapper runs for tensors on the
 CPU; a CUDA tensor goes to the kernel or the call raises.
 
-Ported so far, each path through its own CUDA kernels:
+Ported, each path through its own CUDA kernels:
 
 - POA through ``poa.PoaBatch`` and ``poa.torch_poa``: full-band consensus on
   the lockstep tier (``csrc/poa_lockstep.cu``) with its re-runs, or
@@ -26,7 +26,22 @@ Ported so far, each path through its own CUDA kernels:
   ``samples/sample_extender.py``: ungapped X-drop seed extension, a warp
   per seed (``csrc/xdrop.cu``), with the batched Myers edit distance
   (``aligner.myers_edit_distance_batched``, ``csrc/myers_score.cu``),
-  ``aligner/ukkonen.py`` and the native FASTA parser (``io/native.py``).
+  ``aligner/ukkonen.py`` and the native FASTA parser (``io/native.py``);
+- the multi-device layer (``parallel``): one process per card in a
+  ``torch.distributed`` group (NCCL between cards, gloo where named or on
+  the CPU), with the sharded POA (the per-window kernel on each rank's
+  windows), the sharded aligner step (``aligner.banded_nw_forward``, the
+  banded NW kernel with its distance output), the sharded match counts, and
+  the sharded and multi-process mappers, each equal to one device's result;
+- the tools ``evaluate_paf``, ``genome_simulator`` and
+  ``alignment_visualizer``, the samples (``samples/``: aligner, POA,
+  mapper, extender), ``utils`` (``gfa2fa``, ``calculate_error``) and the
+  native scalar CPU POA baseline (``poa/native_baseline.py``).
 """
 
 __version__ = "0.1.0"
+
+
+def version() -> str:
+    """Framework version (reference: common/base version.hpp)."""
+    return __version__

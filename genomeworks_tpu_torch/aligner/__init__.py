@@ -21,7 +21,11 @@ from genomeworks_tpu_torch.aligner.aligner import (
     FixedBandAligner,
     create_aligner,
 )
-from genomeworks_tpu_torch.aligner.banded_nw import band_offset, banded_nw_forward_plain
+from genomeworks_tpu_torch.aligner.banded_nw import (
+    band_offset,
+    banded_nw_forward,
+    banded_nw_forward_plain,
+)
 from genomeworks_tpu_torch.aligner.cpu_reference import (
     align_cpu,
     edit_distance_cpu,

@@ -4,7 +4,10 @@ plain PyTorch forward pass, and the packed code planes.
 Counterpart of genomeworks_tpu/aligner/banded_nw.py (the XLA scan) and of
 the plane layout of genomeworks_tpu/ops/banded_nw_pallas.py. The CUDA
 kernel is ``ops/banded_nw_cuda.py`` (``csrc/banded_nw.cu``);
-:func:`banded_nw_forward_plain` is its plain version.
+:func:`banded_nw_forward_plain` is its plain version, and
+:func:`banded_nw_final_plain` that of its launch with the distance output.
+:func:`banded_nw_forward` is the public counterpart of the JAX
+``banded_nw_forward`` (distance, move codes in the JAX layout, fits).
 
 Band coordinates: k = j - i - dlo, with the per-alignment lowest diagonal
 ``dlo = min(0, tlen - qlen) - (W - 1 - |tlen - qlen|) // 2``, so both ends of
@@ -52,6 +55,25 @@ def banded_nw_forward_plain(q, t, qlen, tlen, band_width: int):
     the JAX scan does, so the whole tensor is defined. Target bases are
     read at the clipped column t[clip(j - 1, 0, N - 1)]."""
     banded_nw_forward_plain.calls += 1
+    return _forward_plain(q, t, qlen, tlen, band_width)[1:]
+
+
+banded_nw_forward_plain.calls = 0
+
+
+def banded_nw_final_plain(q, t, qlen, tlen, band_width: int):
+    """:func:`banded_nw_forward_plain` with the edit distance: -> (final
+    int32 (B,), codes, fits). ``final`` is the JAX scan's: D(qlen, tlen),
+    tlen where qlen == 0, INF where the pair does not fit the band (or
+    qlen > M)."""
+    banded_nw_final_plain.calls += 1
+    return _forward_plain(q, t, qlen, tlen, band_width)
+
+
+banded_nw_final_plain.calls = 0
+
+
+def _forward_plain(q, t, qlen, tlen, band_width: int):
     B, M = q.shape
     N = t.shape[1]
     W = band_width
@@ -64,6 +86,9 @@ def banded_nw_forward_plain(q, t, qlen, tlen, band_width: int):
     inf = torch.tensor(INF, device=dev, dtype=torch.int64)
     q64 = q.to(torch.int64)
     t64 = t.to(torch.int64)
+    # the final cell's band column (inside the band wherever the pair fits)
+    k_end = (tlen - qlen - dlo).clamp(0, W - 1)[:, None]
+    final = torch.where(qlen == 0, tlen, inf)
 
     j0 = dlo[:, None] + k
     prev = torch.where((j0 >= 0) & (j0 <= tlen[:, None]), j0, inf)
@@ -82,11 +107,39 @@ def banded_nw_forward_plain(q, t, qlen, tlen, band_width: int):
         code = torch.where(cur == left_p1, 2, torch.where(cur == up, 3, sub))
         r = (i - 1) % ROWS_PER_WORD
         codes[:, (i - 1) // ROWS_PER_WORD, :] |= code.to(torch.int32) << (2 * r)
+        final = torch.where(qlen == i, torch.gather(cur, 1, k_end)[:, 0], final)
         prev = cur
-    return codes, fits
+    final = torch.where(fits, final, inf).to(torch.int32)
+    return final, codes, fits
 
 
-banded_nw_forward_plain.calls = 0
+def unpack_codes(codes, M: int):
+    """Code planes int32 (B, M16, W) -> the JAX scan's move codes, uint8
+    (M, B, W) (row i - 1 of the DP first), on the planes' device."""
+    B, M16, W = codes.shape
+    shifts = 2 * torch.arange(ROWS_PER_WORD, device=codes.device, dtype=torch.int32)
+    rows = (codes[:, :, None, :] >> shifts[None, None, :, None]) & 3
+    return rows.reshape(B, M16 * ROWS_PER_WORD, W)[:, :M].permute(1, 0, 2).to(torch.uint8)
+
+
+def banded_nw_forward(q, t, qlen, tlen, band_width: int, device=None):
+    """The banded DP of genomeworks_tpu/aligner/banded_nw.py:53-133 on
+    ``device`` (``None`` = the CUDA card): q uint8 (B, M), t uint8 (B, N)
+    base codes (padded), qlen, tlen int32 (B,), as tensors or NumPy arrays
+    -> (final int32 (B,), codes uint8 (M, B, W), fits bool (B,)), the JAX
+    triple: ``final`` the edit distance (INF where the pair does not fit),
+    ``codes`` each cell's AlignmentState move code. On the card it runs
+    the banded NW kernel (``ops/banded_nw_cuda.py``) with its distance
+    output; on the CPU its plain version."""
+    from genomeworks_tpu_torch.core.device import resolve_device
+    from genomeworks_tpu_torch.ops import banded_nw_cuda as nw_op
+
+    dev = resolve_device(device)
+    q, t = (torch.as_tensor(x, dtype=torch.uint8).to(dev).contiguous() for x in (q, t))
+    qlen, tlen = (torch.as_tensor(x, dtype=torch.int32).to(dev).contiguous()
+                  for x in (qlen, tlen))
+    final, codes, fits = nw_op.banded_nw_cuda(q, t, qlen, tlen, band_width, with_dist=True)
+    return final, unpack_codes(codes, q.shape[1]), fits
 
 
 def planes_from_numpy(codes_np: np.ndarray, device) -> torch.Tensor:

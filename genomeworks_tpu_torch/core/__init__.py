@@ -8,6 +8,18 @@ from genomeworks_tpu_torch.core.types import (
     position_in_read_t,
     representation_t,
 )
+from genomeworks_tpu_torch.core.sequence import (
+    encode_bases,
+    decode_bases,
+    reverse_complement,
+    BASE_TO_CODE,
+    CODE_TO_BASE,
+)
+from genomeworks_tpu_torch.core.bucketing import (
+    pad_to_multiple,
+    bucket_by_length,
+    Bucket,
+)
 from genomeworks_tpu_torch.core.logging import (
     LogLevel,
     initialize_logger,

@@ -15,7 +15,14 @@
 //     (cur == prev[k+1] + 1) before match/mismatch (sub);
 //   - every one of the M rows is computed, rows past qlen included (from
 //     the padded query), so the whole (B, M16, W) plane is defined;
-//   - fits = W >= |tlen - qlen| + 1.
+//   - fits = W >= |tlen - qlen| + 1;
+//   - dist (optional, NULL for none): the edit distance D(qlen, tlen) at
+//     band column tlen - qlen - dlo of row qlen; tlen where qlen == 0; INF
+//     where the pair does not fit or qlen > M (the JAX scan's ``final``).
+//     Written once a pair: by the lane (thread) that holds that cell when it
+//     computes row qlen, else by lane 0 (thread 0) before the first row.
+//     Each kernel is instantiated with and without it (DIST), so a launch
+//     with dist NULL runs the code without the output.
 // Codes are packed 16 rows per int32: row i in word (i - 1) / 16 at bits
 // 2 * ((i - 1) % 16).
 //
@@ -85,12 +92,12 @@ __device__ unsigned long long g_nw_stats[NS_COUNT];
 
 __device__ __forceinline__ int floor_div2(int e) { return e >= 0 ? e / 2 : -((1 - e) / 2); }
 
-template <int CPT>
+template <int CPT, bool DIST>
 __global__ void __launch_bounds__(32 * NW_WARPS)
 banded_nw_warp_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ t,
                       const int* __restrict__ qlen, const int* __restrict__ tlen,
-                      int* __restrict__ codes, uint8_t* __restrict__ fits, int B, int M, int N,
-                      int W) {
+                      int* __restrict__ codes, uint8_t* __restrict__ fits,
+                      int* __restrict__ dist, int B, int M, int N, int W) {
   static_assert(CPT >= 2, "a lane's second base and column feed the wavefront");
   constexpr int TW = (CPT + 3) / 4;  // words of the lane's target bases, 4 a word
   const int lane = threadIdx.x & 31;
@@ -103,7 +110,16 @@ banded_nw_warp_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__
   const uint8_t* qb = q + (size_t)b * M;
   const uint8_t* tb = t + (size_t)b * N;
   int* out = codes + (size_t)b * ((M + RPW - 1) / RPW) * W;
-  if (lane == 0) fits[b] = W >= ad + 1;
+  const bool fit = W >= ad + 1;
+  if (lane == 0) fits[b] = fit;
+  // the final cell's band column (or -1, and lane 0 writes dist now), and
+  // the step at which the lane that holds it computes row qlen (or -1)
+  int kend = -1, s_end = -1;
+  if constexpr (DIST) {
+    kend = fit && ql >= 1 && ql <= M ? diff - dlo : -1;
+    if (lane == 0 && kend < 0) dist[b] = fit && ql == 0 ? tl : INF;
+    if (kend >= lane * CPT && kend < (lane + 1) * CPT) s_end = ql + lane;
+  }
 
   // Lane l computes DP row i = s - l at step s: the rows run skewed one
   // lane apart, so a lane's left neighbour (lane l - 1, row i) is from the
@@ -208,6 +224,13 @@ banded_nw_warp_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__
         const int code = cur[c] == lft + 1 ? 2 : (cur[c] == up ? 3 : sub(c));
         acc[c] = __funnelshift_r(acc[c], unsigned(code), 2);  // row i enters at the top
       }
+      if constexpr (DIST) {
+        if (s == s_end) {
+#pragma unroll
+          for (int c = 0; c < CPT; ++c)
+            if (k0 + c == kend) dist[b] = cur[c];
+        }
+      }
 #pragma unroll
       for (int c = 0; c < CPT; ++c) pv[c] = cur[c];
       lastc = cur[CPT - 1];
@@ -230,11 +253,12 @@ banded_nw_warp_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__
 #endif
 }
 
-template <int CPT>
+template <int CPT, bool DIST>
 __global__ void __launch_bounds__(MAX_THREADS)
 banded_nw_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ t,
                  const int* __restrict__ qlen, const int* __restrict__ tlen,
-                 int* __restrict__ codes, uint8_t* __restrict__ fits, int M, int N, int W) {
+                 int* __restrict__ codes, uint8_t* __restrict__ fits, int* __restrict__ dist,
+                 int M, int N, int W) {
   extern __shared__ int smem[];
   int* row = smem;           // W + 1 ints
   int* wmin = smem + W + 1;  // one per warp
@@ -249,7 +273,14 @@ banded_nw_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ t,
   const uint8_t* qb = q + (size_t)b * M;
   const uint8_t* tb = t + (size_t)b * N;
   int* out = codes + (size_t)b * M16 * W;
-  if (tid == 0) fits[b] = W >= ad + 1;
+  const bool fit = W >= ad + 1;
+  if (tid == 0) fits[b] = fit;
+  // the final cell's band column, or -1 where thread 0 writes dist now
+  int kend = -1;
+  if constexpr (DIST) {
+    kend = fit && ql >= 1 && ql <= M ? diff - dlo : -1;
+    if (tid == 0 && kend < 0) dist[b] = fit && ql == 0 ? tl : INF;
+  }
 
   const int k0 = tid * CPT;
   for (int k = tid; k <= W; k += blockDim.x) {
@@ -313,6 +344,9 @@ banded_nw_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ t,
       const int k = k0 + c;
       cur[c] = min(min(excl, x[c]) + k, INF);
       if (k < W) row[k] = cur[c];
+      if constexpr (DIST) {
+        if (i == ql && k == kend) dist[b] = cur[c];
+      }
     }
     __syncthreads();
 
@@ -335,30 +369,50 @@ banded_nw_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ t,
   }
 }
 
-template <int CPT>
+template <int CPT, bool DIST>
 int launch_warp(const void* q, const void* t, const void* qlen, const void* tlen, void* codes,
-                void* fits, int B, int M, int N, int W, cudaStream_t stream) {
-  banded_nw_warp_kernel<CPT><<<(B + NW_WARPS - 1) / NW_WARPS, 32 * NW_WARPS, 0, stream>>>(
+                void* fits, void* dist, int B, int M, int N, int W, cudaStream_t stream) {
+  banded_nw_warp_kernel<CPT, DIST><<<(B + NW_WARPS - 1) / NW_WARPS, 32 * NW_WARPS, 0, stream>>>(
       (const uint8_t*)q, (const uint8_t*)t, (const int*)qlen, (const int*)tlen, (int*)codes,
-      (uint8_t*)fits, B, M, N, W);
+      (uint8_t*)fits, (int*)dist, B, M, N, W);
   return int(cudaGetLastError());
 }
 
-template <int CPT>
+template <int CPT, bool DIST>
 int launch(const void* q, const void* t, const void* qlen, const void* tlen, void* codes,
-           void* fits, int B, int M, int N, int W, cudaStream_t stream) {
+           void* fits, void* dist, int B, int M, int N, int W, cudaStream_t stream) {
   const int cols = (W + CPT - 1) / CPT;
   const int threads = ((cols + 31) / 32) * 32;
   const size_t smem = size_t(W + 1 + 32) * sizeof(int);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        banded_nw_kernel<CPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+        banded_nw_kernel<CPT, DIST>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (e != cudaSuccess) return int(e);
   }
-  banded_nw_kernel<CPT><<<B, threads, smem, stream>>>(
+  banded_nw_kernel<CPT, DIST><<<B, threads, smem, stream>>>(
       (const uint8_t*)q, (const uint8_t*)t, (const int*)qlen, (const int*)tlen, (int*)codes,
-      (uint8_t*)fits, M, N, W);
+      (uint8_t*)fits, (int*)dist, M, N, W);
   return int(cudaGetLastError());
+}
+
+// The warp kernel for bands up to WARP_MAX_BAND, the block kernel past it.
+template <bool DIST>
+int launch_any(const void* q, const void* t, const void* qlen, const void* tlen, void* codes,
+               void* fits, void* dist, int B, int M, int N, int W, cudaStream_t s) {
+  if (W <= WARP_MAX_BAND) {
+    const int cpt = (W + 31) / 32;  // columns a lane must take (at least 2)
+    if (cpt <= 2) return launch_warp<2, DIST>(q, t, qlen, tlen, codes, fits, dist, B, M, N, W, s);
+    if (cpt <= 4) return launch_warp<4, DIST>(q, t, qlen, tlen, codes, fits, dist, B, M, N, W, s);
+    if (cpt <= 8) return launch_warp<8, DIST>(q, t, qlen, tlen, codes, fits, dist, B, M, N, W, s);
+    return launch_warp<16, DIST>(q, t, qlen, tlen, codes, fits, dist, B, M, N, W, s);
+  }
+  const int per = (W + MAX_THREADS - 1) / MAX_THREADS;  // columns a thread must take
+  if (per <= 2) return launch<2, DIST>(q, t, qlen, tlen, codes, fits, dist, B, M, N, W, s);
+  if (per <= 4) return launch<4, DIST>(q, t, qlen, tlen, codes, fits, dist, B, M, N, W, s);
+  if (per <= 8) return launch<8, DIST>(q, t, qlen, tlen, codes, fits, dist, B, M, N, W, s);
+  if (per <= 16) return launch<16, DIST>(q, t, qlen, tlen, codes, fits, dist, B, M, N, W, s);
+  if (per <= 32) return launch<32, DIST>(q, t, qlen, tlen, codes, fits, dist, B, M, N, W, s);
+  return int(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -366,26 +420,16 @@ int launch(const void* q, const void* t, const void* qlen, const void* tlen, voi
 extern "C" {
 
 // Launch B alignments on `stream`: the warp kernel for bands up to
-// WARP_MAX_BAND, the block kernel past it. Returns cudaGetLastError() after
-// the launch, or cudaErrorInvalidValue for a band over MAX_THREADS * 32
-// (the wrapper's MAX_BAND).
+// WARP_MAX_BAND, the block kernel past it. `dist` (int32 (B,)) may be NULL,
+// and then no distance is written. Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for a band over MAX_THREADS * 32 (the
+// wrapper's MAX_BAND).
 int banded_nw_launch(const void* q, const void* t, const void* qlen, const void* tlen,
-                     void* codes, void* fits, int B, int M, int N, int W, void* stream) {
+                     void* codes, void* fits, void* dist, int B, int M, int N, int W,
+                     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (W <= WARP_MAX_BAND) {
-    const int cpt = (W + 31) / 32;  // columns a lane must take (at least 2)
-    if (cpt <= 2) return launch_warp<2>(q, t, qlen, tlen, codes, fits, B, M, N, W, s);
-    if (cpt <= 4) return launch_warp<4>(q, t, qlen, tlen, codes, fits, B, M, N, W, s);
-    if (cpt <= 8) return launch_warp<8>(q, t, qlen, tlen, codes, fits, B, M, N, W, s);
-    return launch_warp<16>(q, t, qlen, tlen, codes, fits, B, M, N, W, s);
-  }
-  const int per = (W + MAX_THREADS - 1) / MAX_THREADS;  // columns a thread must take
-  if (per <= 2) return launch<2>(q, t, qlen, tlen, codes, fits, B, M, N, W, s);
-  if (per <= 4) return launch<4>(q, t, qlen, tlen, codes, fits, B, M, N, W, s);
-  if (per <= 8) return launch<8>(q, t, qlen, tlen, codes, fits, B, M, N, W, s);
-  if (per <= 16) return launch<16>(q, t, qlen, tlen, codes, fits, B, M, N, W, s);
-  if (per <= 32) return launch<32>(q, t, qlen, tlen, codes, fits, B, M, N, W, s);
-  return int(cudaErrorInvalidValue);
+  if (dist) return launch_any<true>(q, t, qlen, tlen, codes, fits, dist, B, M, N, W, s);
+  return launch_any<false>(q, t, qlen, tlen, codes, fits, nullptr, B, M, N, W, s);
 }
 
 // The widest band the warp kernel takes; wider bands run the block kernel.

@@ -168,9 +168,16 @@ def map_reads(
 
 def _map_reads_device(
     query_parser, target_parser, params, all_to_all, filtering,
-    q_ranges, t_ranges, dev,
+    q_ranges, t_ranges, dev, pairs=None, return_pair_ids=False,
 ):
-    """Device-resident pipeline loop (see mapper.device_pipeline)."""
+    """Device-resident pipeline loop (see mapper.device_pipeline).
+
+    ``pairs`` (optional) is an explicit [(global_idx, q_rng, t_rng)] work
+    list in place of the ranges' pairs: the multi-process path passes its
+    round-robin share, so only those pairs run here. With
+    ``return_pair_ids`` the global pair index of each overlap is returned
+    too, so that the multi-process merge can restore the single-process
+    pair order."""
     from concurrent.futures import ThreadPoolExecutor
 
     from genomeworks_tpu_torch.mapper.device_pipeline import (
@@ -207,13 +214,18 @@ def _map_reads_device(
             t_index = t_cache[t_rng] = build(target_parser, t_rng)
         return q_index, t_index
 
-    pairs = [
-        (q, t) for q in q_ranges for t in t_ranges
-        if not (all_to_all and t[0] < q[0])
-    ]
+    if pairs is None:
+        pairs = [
+            (i, q_rng, t_rng)
+            for i, (q_rng, t_rng) in enumerate(
+                (q, t) for q in q_ranges for t in t_ranges
+                if not (all_to_all and t[0] < q[0])
+            )
+        ]
     overlaps_all: list[Overlap] = []
+    pair_ids: list[int] = []
     if not pairs:
-        return overlaps_all
+        return (overlaps_all, pair_ids) if return_pair_ids else overlaps_all
 
     # copy/compute overlap (the reference double-buffers the next index's
     # H2D copy against the current batch's compute, main.cu:319-365): one
@@ -221,11 +233,11 @@ def _map_reads_device(
     # main thread waits on pair k's counts. All builds go through the
     # worker, so the caches are single-threaded.
     with ThreadPoolExecutor(1) as ex:
-        fut = ex.submit(get_indexes, *pairs[0])
+        fut = ex.submit(get_indexes, *pairs[0][1:])
         for k in range(len(pairs)):
             q_index, t_index = fut.result()
             if k + 1 < len(pairs):
-                fut = ex.submit(get_indexes, *pairs[k + 1])
+                fut = ex.submit(get_indexes, *pairs[k + 1][1:])
             arrs = get_overlaps_device_pipeline(
                 q_index, t_index, all_to_all,
                 params.min_residues, params.min_overlap_len,
@@ -233,8 +245,11 @@ def _map_reads_device(
                 as_arrays=True,
             )
             arrs = post_process_overlaps_arrays(arrs, params.drop_fused_overlaps)
-            overlaps_all.extend(arrs.to_overlaps())
-    return overlaps_all
+            ovs = arrs.to_overlaps()
+            overlaps_all.extend(ovs)
+            if return_pair_ids:
+                pair_ids.extend([pairs[k][0]] * len(ovs))
+    return (overlaps_all, pair_ids) if return_pair_ids else overlaps_all
 
 
 def align_overlaps(

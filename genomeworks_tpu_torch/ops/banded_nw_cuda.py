@@ -6,7 +6,8 @@ one thread block per alignment past it (``banded_nw_kernel``), chosen by
 the launcher.
 
 The kernel source is ``csrc/banded_nw.cu``; its plain PyTorch version is
-``aligner/banded_nw.banded_nw_forward_plain``.
+``aligner/banded_nw.banded_nw_forward_plain``, and with the distance output
+``banded_nw_final_plain``.
 """
 
 from __future__ import annotations
@@ -15,7 +16,11 @@ import ctypes
 
 import torch
 
-from genomeworks_tpu_torch.aligner.banded_nw import banded_nw_forward_plain, num_words
+from genomeworks_tpu_torch.aligner.banded_nw import (
+    banded_nw_final_plain,
+    banded_nw_forward_plain,
+    num_words,
+)
 from genomeworks_tpu_torch.ops import _build
 from genomeworks_tpu_torch.ops._pairs import check_pairs
 
@@ -29,7 +34,7 @@ _lib = None
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a built kernel library."""
-    lib.banded_nw_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.banded_nw_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.banded_nw_launch.restype = ctypes.c_int
     lib.banded_nw_warp_max_band.argtypes = []
     lib.banded_nw_warp_max_band.restype = ctypes.c_int
@@ -46,9 +51,11 @@ def load_library():
     return _lib
 
 
-def banded_nw_cuda(q, t, qlen, tlen, band_width: int):
+def banded_nw_cuda(q, t, qlen, tlen, band_width: int, with_dist: bool = False):
     """Banded DP of B pairs: q uint8 (B, M), t uint8 (B, N) base codes,
-    qlen, tlen int32 (B,) -> (codes int32 (B, ceil(M/16), W), fits bool (B,)).
+    qlen, tlen int32 (B,) -> (codes int32 (B, ceil(M/16), W), fits bool (B,)),
+    and with ``with_dist`` (dist int32 (B,), codes, fits): the edit distance,
+    INF where the pair does not fit the band.
 
     CUDA tensors go to the kernel, launched on the current stream; tensors
     on the CPU go to the plain version. Inputs the kernel does not take
@@ -57,25 +64,28 @@ def banded_nw_cuda(q, t, qlen, tlen, band_width: int):
     if band_width > MAX_BAND:
         raise ValueError(f"band_width {band_width} is over the kernel's {MAX_BAND}")
     if q.device.type == "cpu":
-        return banded_nw_forward_plain(q, t, qlen, tlen, band_width)
+        plain = banded_nw_final_plain if with_dist else banded_nw_forward_plain
+        return plain(q, t, qlen, tlen, band_width)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    return _launch(load_library(), q, t, qlen, tlen, band_width)
+    return _launch(load_library(), q, t, qlen, tlen, band_width, with_dist)
 
 
 banded_nw_cuda.launches = 0
 
 
-def _launch(lib, q, t, qlen, tlen, W):
+def _launch(lib, q, t, qlen, tlen, W, with_dist=False):
     """Allocate the outputs and launch ``lib``'s kernel on the current
-    stream."""
+    stream; (codes, fits), or (dist, codes, fits) ``with_dist``."""
     B, M = q.shape
     codes = torch.empty((B, num_words(M), W), dtype=torch.int32, device=q.device)
     fits = torch.empty(B, dtype=torch.bool, device=q.device)
+    dist = torch.empty(B, dtype=torch.int32, device=q.device) if with_dist else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.banded_nw_launch(q.data_ptr(), t.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
-                              codes.data_ptr(), fits.data_ptr(), B, M, t.shape[1], W, stream)
+                              codes.data_ptr(), fits.data_ptr(),
+                              dist.data_ptr() if with_dist else None, B, M, t.shape[1], W, stream)
     if rc != 0:
         raise RuntimeError(f"banded_nw_kernel launch failed: CUDA error {rc}")
     banded_nw_cuda.launches += 1
-    return codes, fits
+    return (dist, codes, fits) if with_dist else (codes, fits)

@@ -727,3 +727,93 @@ def test_create_extender_without_a_card_raises(monkeypatch):
     with pytest.raises(DeviceRuntimeError):
         myers_edit_distance_batched(["ACGT"], ["ACG"])
     assert create_extender(device="cpu").device.type == "cpu"
+
+
+NW_DIST_SETS = [32, 1024, "bands", "widest", "w16384", "identical", "diagonal-ends", "qlen16",
+                "long-indels", "drift", "empty", "rcap", "dense-10kb", "myers-rows",
+                "myers-narrow", "myers-unfit"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", NW_DIST_SETS)
+def test_nw_dist_output_matches_plain_on_gpu(case):
+    """The banded NW kernel's distance output (``with_dist``, the sharded
+    aligner step's launch) against ``banded_nw_final_plain`` on the same
+    CUDA tensors, bit for bit, with the same codes and fits as the launch
+    without it: on random pairs at W = 32 (the warp kernel) and 1024 (the
+    block kernel), and on every edge set of the row-10 kernel
+    (``chip_smoke.aligner_edge_sets`` with the NW among its forwards), whose
+    bands reach both kernels, an empty query, an empty target and pairs
+    that do not fit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc")
+    from genomeworks_tpu_torch.aligner.banded_nw import INF, banded_nw_final_plain
+    from genomeworks_tpu_torch.ops import banded_nw_cuda as nw
+
+    if isinstance(case, int):
+        runs = [(_pairs(B=24, M=256, seed=case, rate=0.12), case)]
+    else:
+        import chip_smoke
+        from genomeworks_tpu_torch.aligner.aligner import pack_pairs, pack_shape
+        from genomeworks_tpu_torch.core.bucketing import next_pow2
+
+        warp_max = nw.load_library().banded_nw_warp_max_band()
+        spec = chip_smoke.aligner_edge_sets(np.random.default_rng(8), warp_max)[case]
+        assert "banded_nw_cuda" in spec["forwards"]
+        s = next_pow2(max(len(x) for pair in spec["pairs"] for x in pair))
+        inputs = pack_pairs(spec["pairs"], *pack_shape(spec["pairs"], s), torch.device("cuda"))
+        runs = [(inputs, W) for W in spec["bands"]]
+    for (q, t, qlen, tlen), W in runs:
+        launches = nw.banded_nw_cuda.launches
+        dist, codes, fits = nw.banded_nw_cuda(q, t, qlen, tlen, W, with_dist=True)
+        ref = banded_nw_final_plain(q, t, qlen, tlen, W)
+        plain_codes, plain_fits = nw.banded_nw_cuda(q, t, qlen, tlen, W)
+        torch.cuda.synchronize()
+        assert nw.banded_nw_cuda.launches == launches + 2
+        assert dist.dtype == torch.int32
+        for a, b in zip((dist, codes, fits), ref, strict=True):
+            assert torch.equal(a, b)
+        assert torch.equal(codes, plain_codes) and torch.equal(fits, plain_fits)
+        assert torch.equal(dist[~fits], torch.full_like(dist[~fits], INF))
+        empty_q = fits & (qlen == 0)
+        assert torch.equal(dist[empty_q], tlen[empty_q])
+
+
+@pytest.mark.cuda
+def test_sharded_poa_one_nccl_rank_on_gpu():
+    """``poa_batch_consensus_sharded`` in a one-rank NCCL group on the card
+    (loopback rendezvous): covid windows 0-63 equal their golden lines,
+    through the per-window kernel, with no plain call; the group's
+    collectives move tensors on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc")
+    import os
+    import socket
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from genomeworks_tpu_torch.parallel.mesh import make_mesh
+    from genomeworks_tpu_torch.parallel.sharded import poa_batch_consensus_sharded
+    from genomeworks_tpu_torch.poa.windows import load_golden_lines, load_window_file
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+    covid = load_window_file(os.path.join(data, "poa_windows_covid.txt.gz"))[:64]
+    golden = load_golden_lines(os.path.join(data, "poa_golden_covid.txt"))[:64]
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0, timeout=timedelta(seconds=60))
+    try:
+        mesh = make_mesh()
+        assert (mesh.size, mesh.comm_device.type) == (1, "cuda")
+        launches, calls = poa_consensus_cuda.launches, torch_poa.poa_consensus_plain.calls
+        cons, cov, st = poa_batch_consensus_sharded(covid, mesh)
+        assert poa_consensus_cuda.launches > launches
+        assert torch_poa.poa_consensus_plain.calls == calls
+    finally:
+        dist.destroy_process_group()
+    assert st == [0] * 64 and cons == golden
+    assert [len(c) for c in cov] == [len(c) for c in cons]
