@@ -161,16 +161,22 @@ Phases, each of which fails the run (nonzero exit, no result line):
    whose genome intervals share 250 bases), the sketch, anchor and overlap
    counts, the warm walls of ``map_reads`` on both pipelines,
    ``phase_times()``, the peak device memory and the device's busy share.
-11. the extender and the batched Myers distance (slice 12): (a) the
+11. the extender and the batched Myers distance (slices 12 and 14): (a) the
    extender's two kernels (``xdrop_extend_cuda``, a warp per seed, both
-   directions in one launch; ``xdrop_count_cuda``, the entropy's match
-   counts) against their plain versions (``extender/xdrop_plain.py``, on the
-   card), bit for bit, on seeded random seeds of a simulated 20 kb pair and
-   on edge sets (``xdrop_edge_sets``: seeds at 0, at L-1 and out of range;
-   extensions that end at a sequence end mid-tile and on a tile edge; a
-   drop of exactly xdrop that goes on and one of xdrop + 1 that stops; the
-   maximum tied in a tile and across tiles; every code 0-7; xdrop 0; a
-   1 Mbp genome against itself from a seed on the main diagonal), each of
+   directions in one launch, K positions a lane a tile, as the library and
+   the wrapper must agree;
+   ``xdrop_count_cuda``, the entropy's match counts) against their plain
+   versions (``extender/xdrop_plain.py``, on the card), bit for bit, on
+   seeded random seeds of a simulated 20 kb pair and on edge sets
+   (``xdrop_edge_sets``: seeds at 0, at L-1 and out of range; extensions
+   that end at a sequence end mid-tile and on a tile edge; a drop of exactly
+   xdrop that goes on and one of xdrop + 1 that stops; the maximum tied in a
+   tile and across tiles; every code 0-7; xdrop 0; a 1 Mbp genome against
+   itself from a seed on the main diagonal; and the kernel's lanes and tiles,
+   ``xdrop_lane_sets``: drops at a lane's first and last positions and at
+   the first position of tiles 1 and 2, ties across lanes and tiles, walks
+   that end inside a lane and on a lane's edge in the first and a later
+   tile, homologous runs over 4 tiles, a score that wraps int32), each of
    which must reach what it names (``xdrop_facts``: a NumPy replay of every
    seed, which must also equal the plain version); a 10 Mbp genome against
    itself from a main-diagonal seed through the kernel alone, against its
@@ -191,13 +197,18 @@ Phases, each of which fails the run (nonzero exit, no result line):
    ``samples/sample_extender.py`` on the card, on that genome written to a
    FASTA and a CSV of the first 65,536 seeds: its lines equal those of the
    CPU path on the genome against itself with those seeds; (d)
-   ``myers_score_cuda`` (a thread per alignment) against its plain version
+   ``myers_score_cuda`` (a warp per alignment) against its plain version
    on the card and ``myers_edit_distance_batched(device="cuda")`` against
    ``myers_edit_distance_cpu``, on empty queries, queries at a word's edges
    and phase 5's 1,024 pairs of 2 kb (the oracle on the first 32, on the
-   host, one process per core); the 1,024 pairs through
-   ``myers_edit_distance_batched`` are its main path (one launch, no plain
-   call).
+   host, one process per core); the kernel against its plain version (on
+   the host, one process per core) on its edge sets
+   (``myers_score_edge_sets``: one launch at each words-a-lane step 1-16
+   and one past 32 x 16 words, which runs in chunks; queries 0, 1 and 32 j
+   +- 1 bases long, short targets, an empty one in each); the 1,024 pairs
+   through ``myers_edit_distance_batched`` are its main path (one launch,
+   no plain call). The extender's warm wall and busy share and the batched
+   distance's wall are printed beside slice 12's.
 12. the multi-device layer (slice 13, ``genomeworks_tpu_torch.parallel``;
    no new kernel): (a) a one-rank NCCL group on this card (loopback
    rendezvous), the collectives on the card: all covid windows through
@@ -219,7 +230,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    limit.
 7. a ``kernels`` JSON line with each kernel's launches, error against its
    plain version, times and bound (the mapper adds no entry; phase 11 adds
-   ``xdrop_extend_cuda``, ``xdrop_count_cuda`` and ``myers_score_cuda``;
+   ``xdrop_extend_cuda`` and ``myers_score_cuda``, redesigned in slice 14,
+   and ``xdrop_count_cuda``;
    phase 12 adds ``launches_multi_device`` to the per-window POA kernel's
    and the NW's, and the NW's ``dist_ms``).
 8. the last line: ``{"ok": true, "device": {...}}``.
@@ -2645,6 +2657,14 @@ XDROP_POS_OPS = 16
 XCOUNT_POS_OPS = 10
 #: int32 ops a query word a target position in myers_score_kernel
 MYERS_SCORE_WORD_OPS = 22
+#: PERF.md's figures for the slice-12 kernels (a warp a seed with one
+#: position a lane; a thread an alignment) at these shapes, and the main
+#: paths' walls through them (``experiments/torch_extender_check.py
+#: --parent``, two turns, H100 80GB HBM3 at 700 W). Printed for reading
+#: beside this run's numbers; this script does not measure them.
+SLICE12_PERF_MD = ("xdrop_extend 7.2876 ms a batch of 4,194,304 seeds, myers_score 12.552 "
+                   "ms at 1,024 pairs of 2 kb; walls: the extender 0.1742 / 0.2060 s, "
+                   "busy 17.65 / 8.41 %; myers_edit_distance_batched 0.1000 / 0.1047 s")
 
 
 def extender_inputs(rng, length, sub, indel, n_seeds, homologous=0.75):
@@ -2681,34 +2701,56 @@ def extender_inputs(rng, length, sub, indel, n_seeds, homologous=0.75):
     return query, target, seeds[rng.permutation(n_seeds)]
 
 
+def wrap32(x):
+    """int64 values as int32 arithmetic leaves them (two's complement wrap)."""
+    return (np.asarray(x, np.int64) + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
 def xdrop_walk(q, t, qs, ts, sub, xdrop, left):
     """One direction of one seed replayed in NumPy over its whole diagonal,
     as the reference defines it (no tiles): the positions in the sequences
-    score sub[target, query] (reads clamped), the running maximum starts at
-    0, and the walk stops before the first position whose deficit (running
-    max - cumulative) exceeds ``xdrop``. Returns a dict: best, pos (the
-    earliest offset of the best, -1 right / 0 left when it is 0), n (the
-    positions in the sequences), stop (positions walked), the offsets,
-    deficits and cumulative scores walked, and the codes read."""
+    score sub[target, query] (reads clamped), the cumulative score wraps as
+    int32 does, the running maximum starts at 0, and the walk stops before
+    the first position whose deficit (running max - cumulative, wrapped)
+    exceeds ``xdrop``. Returns a dict: best, pos (the earliest offset of the
+    best, -1 right / 0 left when it is 0), n (the positions in the
+    sequences), stop (positions walked), the offsets, deficits and
+    cumulative scores walked, whether the cumulative score wrapped before
+    the stop, and the codes read."""
     Lq, Lt = len(q), len(t)
     n = max(0, min(ts, qs)) if left else max(0, min(Lt - ts, Lq - qs))
     o = np.arange(1, n + 1) if left else np.arange(n)
     tp, qp = (ts - o, qs - o) if left else (ts + o, qs + o)
     tc, qc = t[np.clip(tp, 0, Lt - 1)], q[np.clip(qp, 0, Lq - 1)]
-    cum = np.cumsum(sub[tc, qc].astype(np.int64))
+    exact = np.cumsum(sub[tc, qc].astype(np.int64))
+    cum = wrap32(exact)
     run = np.maximum.accumulate(np.maximum(cum, 0))
-    deficit = run - cum
+    deficit = wrap32(run - cum)
     over = np.flatnonzero(deficit > xdrop)
     stop = int(over[0]) if len(over) else n
     best = int(run[stop - 1]) if stop else 0
     pos = int(o[np.flatnonzero(cum[:stop] == best)[0]]) if best > 0 else (0 if left else -1)
     return {"best": best, "pos": pos, "n": n, "stop": stop, "o": o, "deficit": deficit,
-            "cum": cum, "codes": set(tc[: stop + 1].tolist()) | set(qc[: stop + 1].tolist())}
+            "cum": cum, "wraps": bool((exact[: stop + 1] != cum[: stop + 1]).any()),
+            "codes": set(tc[: stop + 1].tolist()) | set(qc[: stop + 1].tolist())}
+
+
+def xdrop_layout(i):
+    """Where walk index i (an array) lies in ``xdrop_extend_kernel``'s tiles:
+    (tile, lane, position in the lane, positions a lane), with K =
+    ``xdrop_cuda.LANE_POSITIONS`` positions a lane and 32 K a tile."""
+    from genomeworks_tpu_torch.ops.xdrop_cuda import LANE_POSITIONS as K
+
+    i = np.asarray(i, np.int64)
+    return i // (32 * K), i % (32 * K) // K, i % K, K
 
 
 def xdrop_facts(q, t, seeds, sub, xdrop, out):
     """What a set reaches, read from the plain version's outputs ``out``
-    (S, 4) and the NumPy replays of its seeds, which must agree with them."""
+    (S, 4) and the NumPy replays of its seeds, which must agree with them.
+    "tile" alone is a 32-position tile (the first kernel's, and the plain
+    width of the sets that name it); "lane" and "kernel tile" are those of
+    ``xdrop_extend_kernel`` (``xdrop_layout``)."""
     sub8 = np.asarray(sub, np.int64).reshape(8, 8)
     facts = set()
     if xdrop == 0:
@@ -2740,6 +2782,32 @@ def xdrop_facts(q, t, seeds, sub, xdrop, out):
             if w["best"] > 0 and w["pos"] == (ts if left else len(t) - 1 - ts) and \
                     n == (ts if left else len(t) - ts):
                 facts.add(f"{side} reaches its sequence end")
+            # the kernel's lanes and tiles, by walk index (offset - 1 on the left)
+            if stop < n and stop:
+                tile, lane, j, width = xdrop_layout(stop)
+                if j == 0:
+                    facts.add("drop at a lane's first position")
+                if j == width - 1:
+                    facts.add("drop at a lane's last position")
+                if j == 0 and lane == 0:
+                    facts.add(f"drop at the first position of kernel tile {min(tile, 2)}")
+            if stop == n and n:
+                j, width = xdrop_layout(n - 1)[2:]
+                facts.add(f"{side} ends at a sequence end "
+                          + ("on a lane's edge" if j == width - 1 else "inside a lane")
+                          + (" of a later tile" if xdrop_layout(n - 1)[0] else ""))
+            if stop < n and xdrop_layout(stop)[0] >= 4:
+                facts.add("a run over 4 kernel tiles that drops")
+            if w["wraps"]:
+                facts.add("the score wraps int32")
+            if w["best"] > 0:
+                walk = w["o"][np.flatnonzero(w["cum"][:stop] == w["best"])] - (1 if left else 0)
+                if len(walk) > 1:
+                    tile, lane = xdrop_layout(walk)[:2]
+                    if len(set(tile.tolist())) > 1:
+                        facts.add("tie across kernel tiles")
+                    if len(set(lane[tile == tile[0]].tolist())) > 1:
+                        facts.add("tie across lanes of a kernel tile")
         if qs == 0 or ts == 0:
             facts.add("seed at 0")
         if qs == len(q) - 1 or ts == len(t) - 1:
@@ -2776,6 +2844,7 @@ def xdrop_edge_sets(rng):
     rq, rt, rseeds = extender_inputs(rng, 20_000, *EXT_ERRORS, 3000)
     big = rng.integers(0, 4, 1_000_000).astype(np.uint8)
     mid = 500_007
+    sets = xdrop_lane_sets(rng)
     return {
         "ends": (g, g, ends, d, 910, 128,
                  {"seed at 0", "seed at L-1", "seed out of range",
@@ -2796,7 +2865,124 @@ def xdrop_edge_sets(rng):
         "random 20 kb, xdrop 200": (rq, rt, rseeds, d, 200, 128, set()),
         "1 Mbp self": (big, big, np.array([[mid, mid]]), d, 910, 1 << 16,
                        {"right reaches its sequence end", "left reaches its sequence end"}),
+        **sets,
     }
+
+
+def xdrop_lane_sets(rng):
+    """The edge sets of the kernel's lanes (K positions each) and tiles (32
+    K): label -> (query, target, seeds, sub, xdrop, plain width, what the set
+    must reach)."""
+    from genomeworks_tpu_torch.extender import DEFAULT_SCORE_MATRIX
+    from genomeworks_tpu_torch.ops.xdrop_cuda import LANE_POSITIONS as K
+
+    d = DEFAULT_SCORE_MATRIX
+    tile = 32 * K
+    # two query mismatches (-114 each) among matches (+91): at xdrop 200 a
+    # walk drops on the second, at walk index a + 1 for a matches first
+    reach = 2 * tile + 8
+    dq = np.zeros(2 * reach + 2, np.uint8)
+    dq[reach:reach + 2] = 1
+    a = np.arange(reach)
+    drops = np.concatenate([np.stack([reach - a, np.full(reach, 1000)], 1),
+                            np.stack([reach + 2 + a, np.full(reach, 1000)], 1)])
+    # +100 / -100 alternating on both sides of the seed: the maximum tied at
+    # every other position over more than a kernel tile, then a drop
+    ties = d.copy()
+    ties[1, 1], ties[1, 2] = 100, -100
+    m = tile + 8
+    tq = np.array([2] * 20 + [1] + [2, 1] * m + [1] + [2, 1] * m + [2] * 20, np.uint8)
+    c = 21 + 2 * m  # the second lone 1: both walks start on a +100
+    # identical sequences: walks that end at the sequence ends, n = 1 .. 2 tiles
+    g = rng.integers(0, 4, 1000).astype(np.uint8)
+    L = len(g)
+    m_ = np.arange(1, 2 * tile + 9)
+    ends = np.concatenate([np.stack([L - m_, L - m_], 1), np.stack([m_, m_], 1)])
+    # a match near 2^30: the cumulative score wraps int32 after two, and the
+    # wrapped deficit is negative (no drop) until it climbs past xdrop again
+    wrap = d.copy()
+    wrap[0, 0] = (1 << 30) - 1
+    z = np.zeros(300, np.uint8)
+    rq, rt, rseeds = extender_inputs(rng, 20_000, *EXT_ERRORS, 3000)
+    return {
+        "drops at lane edges": (dq, np.zeros(2000, np.uint8), drops, d, 200, 32,
+                                {"drop at a lane's first position",
+                                 "drop at a lane's last position",
+                                 "drop at the first position of kernel tile 1",
+                                 "drop at the first position of kernel tile 2"}),
+        "ties over kernel tiles": (tq, np.ones(len(tq), np.uint8), np.array([[c, c]]), ties,
+                                   910, 32, {"tie across lanes of a kernel tile",
+                                             "tie across kernel tiles"}),
+        "ends inside lanes": (g, g, ends, d, 910, 32,
+                              {f"{side} ends at a sequence end {where}{later}"
+                               for side in ("right", "left")
+                               for where in ("inside a lane", "on a lane's edge")
+                               for later in ("", " of a later tile")}),
+        "homologous runs": (rq, rt, rseeds, d, 910, 128, {"a run over 4 kernel tiles that drops"}),
+        "int32 wrap": (z, z, np.array([[0, 0], [100, 100], [150, 150], [299, 299]]), wrap, 910,
+                       32, {"the score wraps int32"}),
+    }
+
+
+def myers_score_edge_sets(rng, tmax=16):
+    """The batched Myers kernel's edge sets, one launch each: label ->
+    (queries, targets). Query lengths 0, 1 and 32 j +- 1 bases for j = 1 ..
+    32 x 16 + 1 (up to 16,417 bases, 514 words), grouped by the words a lane
+    of a launch over their words ("npl k": n_words in (32 (k - 1), 32 k]) and
+    past 32 x 16 words ("chunked", two chunks of 32 x 16 words); then "3-4
+    chunks": 0, 1 and the edges of the second, third and fourth chunks
+    (32,767 to 49,153 bases, 40,000 among them), whose middle chunks read
+    the carries of the chunk below while they store their own. Each launch
+    has 0 and 1, and an empty target. Targets are at most ``tmax`` bases
+    (the chunked launches' up to 100, over several 32-position groups of
+    the carry scratch): the query's start with 10 % substitutions,
+    or random."""
+    from genomeworks_tpu_torch.ops.myers_score_cuda import MAX_WORDS_PER_LANE as MAX_NPL
+
+    lengths = sorted({0, 1} | {32 * j + d for j in range(1, 32 * MAX_NPL + 2)
+                               for d in (-1, 1)})
+
+    def npl(n):
+        words = max(1, -(-n // 32))
+        return min(-(-words // 32), MAX_NPL + 1)
+
+    def targets(qs, top):
+        ts = []
+        for i, q in enumerate(qs):
+            m = top if i == len(qs) - 1 else int(rng.integers(1, top + 1))
+            if i % 2 and q:
+                t = np.frombuffer(q[:m].encode(), np.uint8).copy()
+                flip = rng.random(len(t)) < 0.1
+                t[flip] = BASES[rng.integers(0, 4, int(flip.sum()))]
+                ts.append(t.tobytes().decode())
+            else:
+                ts.append("".join(BASES[rng.integers(0, 4, m)].astype("U1")))
+        ts[len(ts) // 2] = ""
+        return ts
+
+    groups: dict = {}
+    for n in lengths:
+        groups.setdefault(npl(n), []).append(n)
+    sets = {}
+    for k, ns in sorted(groups.items()):
+        ns = sorted(set(ns) | {0, 1})
+        top = 100 if k > MAX_NPL else tmax
+        qs = ["".join(BASES[rng.integers(0, 4, n)].astype("U1")) for n in ns]
+        sets["chunked" if k > MAX_NPL else f"npl {k}"] = (qs, targets(qs, top))
+    cw = 32 * 32 * MAX_NPL  # bases a chunk
+    ns = [0, 1, 2 * cw - 1, 2 * cw, 2 * cw + 1, 40_000, 3 * cw, 3 * cw + 1]
+    qs = ["".join(BASES[rng.integers(0, 4, n)].astype("U1")) for n in ns]
+    sets["3-4 chunks"] = (qs, targets(qs, 100))
+    return sets
+
+
+def myers_chunks(qlen):
+    """The chunks of 32 x MAX_WORDS_PER_LANE words that myers_score_kernel
+    runs a query of ``qlen`` bases in (an array)."""
+    from genomeworks_tpu_torch.ops.myers_score_cuda import MAX_WORDS_PER_LANE as MAX_NPL
+
+    words = np.maximum(-(-np.asarray(qlen, np.int64) // 32), 1)
+    return -(-words // (32 * MAX_NPL))
 
 
 def ssp_lines(ssps):
@@ -2847,13 +3033,24 @@ def extender_phase(dev):
               xdrop_plain.count_matches_plain, myers_score_plain)
     rng = np.random.default_rng(2025)
     short = random_pairs(rng, 1024, 2000, 0.04, 0.01, 0.01)  # phase 5's 2-kb pairs
-    pool = ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
+    workers = min(8, os.cpu_count() or 1)
+    pool = ProcessPoolExecutor(max_workers=workers,
                                mp_context=multiprocessing.get_context("spawn"))
+    # the Myers kernel's edge sets (words a lane 1-16, two chunks, one to
+    # four chunks), their plain word chains on the host CPU; the longest
+    # chain (one to four chunks, some 30 s) first, beside the others
+    myers_sets = myers_score_edge_sets(np.random.default_rng(14))
+    longest = "3-4 chunks"
+    longest_job = pool.submit(myers_plain_job, list(zip(*myers_sets[longest])))
     oracle_jobs = pool.map(myers_cpu_job, short[:32])
     # the plain word chain is a host loop of some 20 ops a word a target
     # position whatever the batch: on the card 2.6 M launches (93 s); on the
-    # host CPU one process per core over 128 pairs each, meanwhile
-    plain_jobs = pool.map(myers_plain_job, [short[i:i + 128] for i in range(0, 1024, 128)])
+    # host CPU, meanwhile, one job on each other process
+    step = -(-len(short) // max(1, workers - 1))
+    pair_chunks = [short[i:i + step] for i in range(0, len(short), step)]
+    plain_jobs = pool.map(myers_plain_job, pair_chunks)
+    myers_set_jobs = pool.map(myers_plain_job, [list(zip(*v)) for k, v in myers_sets.items()
+                                                if k != longest])
 
     def tensors(q, t, seeds, sub):
         return (torch.from_numpy(np.ascontiguousarray(q, np.uint8)).to(dev),
@@ -3019,15 +3216,38 @@ def extender_phase(dev):
              "queries and word edges")
     print("check myers_score on empty queries and word edges: kernel == plain (on the card); "
           "the batched distances == myers_edit_distance_cpu")
+    # the Myers kernel's edge sets: every words-a-lane instantiation and the
+    # chunked queries, one launch each, against the plain chains on the host
+    mlib = myers_score_cuda.load_library()
+    seen = set()
+    set_plain = dict(zip([k for k in myers_sets if k != longest], myers_set_jobs))
+    set_plain[longest] = longest_job.result()
+    for label, (qs, ts) in myers_sets.items():
+        want = set_plain[label][0]
+        peq, tc, ql, tl = myers_inputs(qs, ts)
+        margs = [torch.from_numpy(a).to(dev) for a in (peq.view(np.int32), tc, ql, tl)]
+        compare(f"myers_score on {label}", (myers_score_cuda.myers_score_cuda(*margs),),
+                (want.to(dev),))
+        npl = mlib.myers_score_words_per_lane(peq.shape[2])
+        chunks = set(myers_chunks(ql).tolist())
+        seen.add("3-4 chunks" if chunks >= {1, 2, 3, 4} else
+                 "chunked" if myers_score_cuda.chunked(peq.shape[2]) else f"npl {npl}")
+    if seen != set(myers_sets):
+        fail(f"the Myers edge sets reached {sorted(seen)}, not {sorted(myers_sets)}")
+    print(f"check myers_score on its edge sets: {len(myers_sets)} launches (words a lane 1-"
+          f"{myers_score_cuda.MAX_WORDS_PER_LANE}, two chunks, and one to four chunks with "
+          f"queries up to {max(len(q) for q in myers_sets['3-4 chunks'][0])} bases, an empty "
+          f"target in each): kernel == plain (on the host CPU)")
     peq, tc, ql, tl = myers_inputs([p[0] for p in short], [p[1] for p in short])
     margs = [torch.from_numpy(a).to(dev) for a in (peq.view(np.int32), tc, ql, tl)]
-    mk_ms, mk = cuda_ms(lambda: myers_score_cuda.myers_score_cuda(*margs), 3)
+    mk = myers_score_cuda.myers_score_cuda(*margs)
+    mk_ms, _ = cuda_ms(lambda: myers_score_cuda._launch(mlib, *margs), 3)
     plain_out = list(plain_jobs)
     mp_ms = 1e3 * sum(sec for _, sec in plain_out)
     compare("myers_score on phase 5's 1024 pairs of 2 kb", (mk,),
             (torch.cat([o for o, _ in plain_out]).to(dev),))
     print(f"check myers_score on phase 5's 1024 pairs of 2 kb: kernel == plain (on the host "
-          f"CPU, 8 chunks of 128, one process a core); kernel {mk_ms:.3f} ms, plain "
+          f"CPU, {len(pair_chunks)} chunks of {step}, one process a core); kernel {mk_ms:.3f} ms, plain "
           f"{mp_ms:.1f} ms of host CPU in all", flush=True)
     words = np.maximum((ql.astype(np.int64) - 1) // 32, 0) + 1
     myers_ops = MYERS_SCORE_WORD_OPS * int((words * tl).sum())
@@ -3051,6 +3271,8 @@ def extender_phase(dev):
     print(f"myers_edit_distance_batched main path: 1024 pairs of 2 kb, {myers_wall:.4f} s "
           f"wall, {myers_launches} launch, no plain call; the first 32 == "
           f"myers_edit_distance_cpu (host, one process per core)")
+    print(f"slice 12's kernels (PERF.md's figures, not measured in this run): "
+          f"{SLICE12_PERF_MD}")
 
     def bound(nbytes, ops):
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / SCALAR_OPS_PER_S * 1e3
@@ -3059,8 +3281,10 @@ def extender_phase(dev):
     print(f"phase 11: {time.perf_counter() - t_phase:.1f} s", flush=True)
     common = {"route": "cuda", "state": "added in slice 12", "max_abs_err": 0,
               "library_ms": None}
+    redesigned = {**common, "state": "redesigned in slice 14"}
     return [{
-        "name": "xdrop_extend_cuda", **common, "source": XDROP_SOURCE,
+        "name": "xdrop_extend_cuda", **redesigned, "source": XDROP_SOURCE,
+        "lane_positions": xdrop_cuda.LANE_POSITIONS,
         "replaces": "none (XLA in the JAX package: genomeworks_tpu/extender/xdrop.py:220)",
         "launches": launches["xdrop_extend_cuda"], "ms": ext_ms, "plain_ms": cp_ms,
         **bound(ext_bytes, XDROP_POS_OPS * extended),
@@ -3077,13 +3301,13 @@ def extender_phase(dev):
         "plain_timed_on": f"the first {EXT_CHECK} seeds' {len(cnz)} (kernel {cck_ms:.4f} ms)",
         "device_ms_main_path": dev_ms.get("xdrop_count_kernel", 0.0),
     }, {
-        "name": "myers_score_cuda", **common, "source": MYERS_SCORE_SOURCE,
+        "name": "myers_score_cuda", **redesigned, "source": MYERS_SCORE_SOURCE,
         "replaces": "none (XLA in the JAX package: genomeworks_tpu/aligner/myers.py:106)",
         "launches": myers_launches, "ms": mk_ms, "plain_ms": mp_ms,
         **bound(myers_bytes, myers_ops),
-        "timed_on": "phase 5's 1024 pairs of 2 kb",
-        "plain_timed_on": "the same pairs on the host CPU, 8 chunks of 128 pairs, one thread "
-                          "each (the sum)", "main_path_s": myers_wall,
+        "timed_on": "phase 5's 1024 pairs of 2 kb, the launch alone (no input checks)",
+        "plain_timed_on": f"the same pairs on the host CPU, {len(pair_chunks)} chunks of {step} "
+                          "pairs, one thread each (the sum)", "main_path_s": myers_wall,
     }]
 
 

@@ -1,5 +1,5 @@
-"""CUDA kernel for the batched Myers edit distance, one thread per
-alignment: the card path of ``aligner.myers.myers_edit_distance_batched``.
+"""CUDA kernel for the batched Myers edit distance, a warp per alignment:
+the card path of ``aligner.myers.myers_edit_distance_batched``.
 
 It replaces no TPU kernel: the JAX package runs this scan as XLA ops
 (genomeworks_tpu/aligner/myers.py ``_myers_scan``). The source is
@@ -20,15 +20,22 @@ from genomeworks_tpu_torch.aligner import myers as _myers
 from genomeworks_tpu_torch.ops import _build
 
 SOURCE = "myers_score.cu"
+#: query words a lane at most (the kernel's MAX_NPL); longer queries run in
+#: chunks of 32 x MAX_WORDS_PER_LANE words
+MAX_WORDS_PER_LANE = 16
 
 _lib = None
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a built kernel library."""
-    lib.myers_score_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+    lib.myers_score_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
     lib.myers_score_launch.restype = ctypes.c_int
+    lib.myers_score_words_per_lane.argtypes = [ctypes.c_int]
+    lib.myers_score_words_per_lane.restype = ctypes.c_int
+    lib.myers_score_stats.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.myers_score_stats.restype = ctypes.c_int
     return lib
 
 
@@ -70,12 +77,29 @@ def myers_score_cuda(peq, t_codes, qlen, tlen):
         return _myers.myers_score_plain(peq, t_codes, qlen, tlen)
     if peq.device.type != "cuda":
         raise ValueError(f"unsupported device {peq.device}")
+    return _launch(load_library(), peq, t_codes, qlen, tlen)
+
+
+def chunked(n_words: int) -> bool:
+    """Whether a launch over ``n_words`` query words runs its longest
+    queries in chunks (and needs the carry scratch)."""
+    return n_words > 32 * MAX_WORDS_PER_LANE
+
+
+def _launch(lib, peq, t_codes, qlen, tlen):
+    """One launch of ``lib`` (this source or a build of another version of
+    it) on checked CUDA tensors: the carry planes of a chunked query, 2 bits
+    a target position, in a scratch allocated here."""
+    B, _, n_words = peq.shape
+    T = t_codes.shape[1]
     out = torch.empty(B, dtype=torch.int32, device=peq.device)
-    scratch = torch.empty((2, n_words, B), dtype=torch.int32, device=peq.device)
+    carries = (torch.empty((B, 2 * ((T + 31) // 32)), dtype=torch.int32, device=peq.device)
+               if chunked(n_words) else None)
     stream = torch.cuda.current_stream(peq.device).cuda_stream
-    rc = load_library().myers_score_launch(
+    rc = lib.myers_score_launch(
         peq.data_ptr(), t_codes.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
-        scratch[0].data_ptr(), scratch[1].data_ptr(), out.data_ptr(), B, T, n_words, stream)
+        None if carries is None else carries.data_ptr(), out.data_ptr(), B, T, n_words,
+        stream)
     if rc != 0:
         raise RuntimeError(f"myers_score_kernel launch failed: CUDA error {rc}")
     myers_score_cuda.launches += 1

@@ -1,6 +1,7 @@
 """CUDA kernels of the ungapped X-drop extender, a warp per seed: the
-extension of both directions of a batch of seeds in one launch, and the
-A/C/G/T match counts of the final segments that the entropy reads.
+extension of both directions of a batch of seeds in one launch (a lane
+scores ``LANE_POSITIONS`` consecutive positions of a tile), and the A/C/G/T
+match counts of the final segments that the entropy reads.
 
 They replace no TPU kernel: the JAX package runs the extension as XLA ops
 (genomeworks_tpu/extender/xdrop.py, ``_extend_direction`` and
@@ -19,6 +20,9 @@ from genomeworks_tpu_torch.extender.xdrop_plain import count_matches_plain, xdro
 from genomeworks_tpu_torch.ops import _build
 
 SOURCE = "xdrop.cu"
+#: positions a lane scores a tile of xdrop_extend_kernel (the source's
+#: ``constexpr int K``): a tile is 32 of them
+LANE_POSITIONS = 8
 
 _lib = None
 
@@ -31,6 +35,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.xdrop_count_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
     lib.xdrop_count_launch.restype = ctypes.c_int
+    lib.xdrop_stats.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.xdrop_stats.restype = ctypes.c_int
     return lib
 
 

@@ -658,7 +658,9 @@ def test_map_reads_on_gpu_equals_host_pipeline(tmp_path):
     assert runs["gpu"] == runs["host"] == runs["cpu"]
 
 
-XDROP_SETS = ["ends", "drop at xdrop", "ties", "codes 0-7", "xdrop 0", "random 20 kb"]
+XDROP_SETS = ["ends", "drop at xdrop", "ties", "codes 0-7", "xdrop 0", "random 20 kb",
+              "drops at lane edges", "ties over kernel tiles", "ends inside lanes",
+              "homologous runs", "int32 wrap"]
 
 
 @pytest.mark.cuda
@@ -666,7 +668,10 @@ XDROP_SETS = ["ends", "drop at xdrop", "ties", "codes 0-7", "xdrop 0", "random 2
 def test_xdrop_kernels_match_plain_on_gpu(case):
     """The extender's two kernels against their plain versions on the card,
     on a seeded random set and the tie, clamp and edge sets of
-    ``chip_smoke.xdrop_edge_sets``, each of which must reach what it names."""
+    ``chip_smoke.xdrop_edge_sets`` (drops at a lane's and a tile's first and
+    last positions, ties across lanes and tiles, walks that end inside a
+    lane, homologous runs over many tiles, int32 wrap), each of which must
+    reach what it names at the kernel's lane width."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card and nvcc")
     import chip_smoke
@@ -684,33 +689,69 @@ def test_xdrop_kernels_match_plain_on_gpu(case):
     torch.cuda.synchronize()
     assert xdrop_extend_cuda.launches == launches + 1
     assert torch.equal(k, p)
+    counts = xdrop_count_cuda.launches
     kc = xdrop_count_cuda(qd, td, qp, tp, k[:, 3].contiguous(), k[:, 1].contiguous())
     pc = count_matches_plain(qd, td, qp, tp, p[:, 3].contiguous(), p[:, 1].contiguous(), width)
+    assert xdrop_count_cuda.launches == counts + 1
     assert torch.equal(kc, pc)
     assert want <= chip_smoke.xdrop_facts(q, t, seeds, sub, xd, p.cpu().numpy())
 
 
+MYERS_SCORE_SETS = ["word edges", *(f"npl {k}" for k in range(1, 17)), "chunked",
+                    "3-4 chunks", "1024 x 2 kb"]
+
+
 @pytest.mark.cuda
-def test_myers_score_kernel_matches_plain_on_gpu():
-    """myers_score_kernel against its plain version on empty queries, queries
-    at a word's edges and mutated 300-bp pairs, and the batched distances
-    against myers_edit_distance_cpu."""
+@pytest.mark.parametrize("case", MYERS_SCORE_SETS)
+def test_myers_score_kernel_matches_plain_on_gpu(case):
+    """myers_score_kernel against its plain version (on the host: its word
+    chain is a loop of launches a word a target position), one launch a set:
+    empty queries, queries at a word's edges and mutated 300-bp pairs (and
+    the batched distances against myers_edit_distance_cpu); the sets of
+    ``chip_smoke.myers_score_edge_sets``, query lengths 0, 1 and 32 j +- 1 at
+    every words-a-lane step and past the chunk edge, and queries of one to
+    four chunks (to 49,153 bases: middle chunks that read the carries below
+    while they store their own), short targets, an empty one in each; and
+    phase 5's 1,024 pairs of 2 kb."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card and nvcc")
+    import chip_smoke
     from genomeworks_tpu_torch.aligner.myers import (
         myers_edit_distance_batched, myers_edit_distance_cpu, myers_inputs, myers_score_plain,
     )
-    from genomeworks_tpu_torch.ops.myers_score_cuda import myers_score_cuda
+    from genomeworks_tpu_torch.ops.myers_score_cuda import (
+        MAX_WORDS_PER_LANE, chunked, load_library, myers_score_cuda,
+    )
 
     rng = np.random.default_rng(21)
-    qs = [_random(rng, n) for n in (0, 1, 31, 32, 33, 63, 64, 65, 96, 97, 300, 300)] + [""]
-    ts = [_mutate(rng, q, 0.1) if q else _random(rng, 9) for q in qs[:-1]] + [""]
+    if case == "word edges":
+        qs = [_random(rng, n) for n in (0, 1, 31, 32, 33, 63, 64, 65, 96, 97, 300, 300)] + [""]
+        ts = [_mutate(rng, q, 0.1) if q else _random(rng, 9) for q in qs[:-1]] + [""]
+    elif case == "1024 x 2 kb":
+        pairs = chip_smoke.random_pairs(np.random.default_rng(2025), 1024, 2000, 0.04, 0.01,
+                                        0.01)
+        qs, ts = [p[0] for p in pairs], [p[1] for p in pairs]
+    else:
+        qs, ts = chip_smoke.myers_score_edge_sets(np.random.default_rng(14))[case]
     peq, tc, ql, tl = myers_inputs(qs, ts)
-    args = [torch.from_numpy(a).cuda() for a in (peq.view(np.int32), tc, ql, tl)]
-    out = myers_score_cuda(*args)
-    assert torch.equal(out, myers_score_plain(*args))
-    got = myers_edit_distance_batched(qs, ts).tolist()
-    assert got == [myers_edit_distance_cpu(t, q) for q, t in zip(qs, ts)]
+    n_words = peq.shape[2]
+    npl = load_library().myers_score_words_per_lane(n_words)
+    if case.startswith("npl"):
+        assert npl == int(case.split()[1]) and not chunked(n_words)
+    if case == "chunked":
+        assert npl == MAX_WORDS_PER_LANE and chunked(n_words)
+    if case == "3-4 chunks":
+        assert npl == MAX_WORDS_PER_LANE and set(chip_smoke.myers_chunks(ql)) == {1, 2, 3, 4}
+    args = [torch.from_numpy(a) for a in (peq.view(np.int32), tc, ql, tl)]
+    launches = myers_score_cuda.launches
+    out = myers_score_cuda(*(a.cuda() for a in args))
+    torch.cuda.synchronize()
+    assert myers_score_cuda.launches == launches + 1
+    assert torch.equal(out.cpu(), myers_score_plain(*args))
+    if case == "word edges":
+        got = myers_edit_distance_batched(qs, ts).tolist()
+        assert myers_score_cuda.launches == launches + 2
+        assert got == [myers_edit_distance_cpu(t, q) for q, t in zip(qs, ts)]
 
 
 @pytest.mark.cuda

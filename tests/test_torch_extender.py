@@ -1,7 +1,8 @@
 """The port's extender (genomeworks_tpu_torch.extender) against the JAX
 package's (genomeworks_tpu.extender) on the CPU: the encoding, each
 direction's (score, position) against ``_extend_direction`` at plain widths
-32 and 128, the match counts against ``_count_matches``, the sort and
+32, 128 and 256 and on the edge sets of the card kernel's lanes and tiles,
+the match counts against ``_count_matches``, the sort and
 deduplication against ``_sort_and_dedup``, whole SSP lists of
 ``create_extender(device="cpu")`` under each setting, tensor inputs, the CSV
 parsers and the sample. Every comparison is exact; inputs are simulated
@@ -57,7 +58,7 @@ def test_encoding_and_score_matrix():
     assert px.DEFAULT_SCORE_MATRIX.dtype == jx.DEFAULT_SCORE_MATRIX.dtype
 
 
-@pytest.mark.parametrize("width", [32, 128])
+@pytest.mark.parametrize("width", [32, 128, 256])
 @pytest.mark.parametrize("left", [False, True], ids=["right", "left"])
 def test_direction_matches_jax(pair, width, left):
     """(score, position) per seed of each direction, at fixed plain widths,
@@ -81,6 +82,41 @@ def test_direction_matches_jax(pair, width, left):
         width)
     np.testing.assert_array_equal(got[0].numpy(), want[0])
     np.testing.assert_array_equal(got[1].numpy(), want[1])
+
+
+LANE_SETS = ["drops at lane edges", "ties over kernel tiles", "ends inside lanes",
+             "homologous runs", "int32 wrap"]
+
+
+@pytest.fixture(scope="module")
+def edge_sets():
+    return chip_smoke.xdrop_edge_sets(np.random.default_rng(12))
+
+
+@pytest.mark.parametrize("case", LANE_SETS)
+def test_lane_edge_sets_match_jax(edge_sets, case):
+    """The edge sets of the extension kernel's lanes and tiles
+    (``chip_smoke.xdrop_lane_sets``): both directions of the plain version, at
+    the set's plain width, against the JAX package's ``_extend_direction``,
+    and each set reaches what it names (``chip_smoke.xdrop_facts``, a NumPy
+    replay of every seed that must agree with the plain version)."""
+    q, t, seeds, sub, xd, width, want = edge_sets[case]
+    sub = np.asarray(sub, np.int32).reshape(-1)
+    args = [torch.from_numpy(np.ascontiguousarray(q, np.uint8)),
+            torch.from_numpy(np.ascontiguousarray(t, np.uint8)),
+            torch.from_numpy(seeds[:, 0].astype(np.int32)),
+            torch.from_numpy(seeds[:, 1].astype(np.int32)), torch.from_numpy(sub.copy())]
+    out = []
+    for left in (False, True):
+        want_dir = jx._extend_direction(jnp.asarray(q, jnp.int32), jnp.asarray(t, jnp.int32),
+                                        jnp.asarray(seeds[:, 0], jnp.int32),
+                                        jnp.asarray(seeds[:, 1], jnp.int32), jnp.asarray(sub),
+                                        jnp.int32(xd), left)
+        got = xdrop_plain.extend_direction_plain(*args, xd, left, width)
+        np.testing.assert_array_equal(got[0].numpy(), want_dir[0])
+        np.testing.assert_array_equal(got[1].numpy(), want_dir[1])
+        out += [got[0].numpy(), got[1].numpy()]
+    assert want <= chip_smoke.xdrop_facts(q, t, seeds, sub, xd, np.stack(out, 1))
 
 
 def test_count_matches_matches_jax(pair):

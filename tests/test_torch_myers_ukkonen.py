@@ -1,7 +1,8 @@
 """The port's unbanded edit-distance helpers against the JAX package's on
 the CPU, exactly: ``myers_edit_distance_cpu``, the batched Myers distance
 (``myers_edit_distance_batched(device="cpu")`` and its plain word chain
-``myers_score_plain`` against ``_myers_scan``) and ``ukkonen_cpu`` /
+``myers_score_plain`` against ``_myers_scan``, also on the query lengths of
+the card kernel's edge sets) and ``ukkonen_cpu`` /
 ``ukkonen_edit_distance_cpu``, on the kinds of cases of tests/test_myers.py
 and tests/test_ukkonen.py: empty, multi-word and mixed lengths."""
 
@@ -68,6 +69,29 @@ def test_myers_score_plain_matches_jax_scan():
     their distance)."""
     cases = _cases(12, 13, 0, 150) + EDGES
     qs, ts = [c[0] for c in cases], [c[1] for c in cases]
+    peq, tc, ql, tl = pm.myers_inputs(qs, ts)
+    want = jm._myers_scan(jnp.asarray(peq), jnp.asarray(tc.astype(np.int32)), jnp.asarray(ql),
+                          jnp.asarray(tl), n_words=peq.shape[2], t_steps=tc.shape[1])
+    got = pm.myers_score_plain(torch.from_numpy(peq.view(np.int32)), torch.from_numpy(tc),
+                               torch.from_numpy(ql), torch.from_numpy(tl))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("group", ["npl steps", "chunked", "3-4 chunks"])
+def test_myers_score_edge_sets_match_jax_scan(group):
+    """The query lengths of the card kernel's edge sets
+    (``chip_smoke.myers_score_edge_sets``: 0, 1 and 32 j +- 1 at every
+    words-a-lane step, past 32 x 16 words, and at the edges of three and
+    four chunks of 32 x 16 words), their targets cut to 6 bases so the word
+    chain stays small: the plain word chain against ``_myers_scan``, the
+    words-a-lane sets in one batch."""
+    import chip_smoke
+
+    sets = chip_smoke.myers_score_edge_sets(np.random.default_rng(14))
+    cases = [pair for label, (qs, ts) in sets.items()
+             if (label if label in ("chunked", "3-4 chunks") else "npl steps") == group
+             for pair in zip(qs, ts)]
+    qs, ts = [c[0] for c in cases], [c[1][:6] for c in cases]
     peq, tc, ql, tl = pm.myers_inputs(qs, ts)
     want = jm._myers_scan(jnp.asarray(peq), jnp.asarray(tc.astype(np.int32)), jnp.asarray(ql),
                           jnp.asarray(tl), n_words=peq.shape[2], t_steps=tc.shape[1])
