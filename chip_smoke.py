@@ -80,10 +80,14 @@ Phases, each of which fails the run (nonzero exit, no result line):
    kernel's layouts: the bands where its words a lane change, qlen across
    the window's first moves (rows 63 and 95) and its 8-row groups, a
    window wider than the target's words, pairs that do not fit the band,
-   W = 32768 at M = 48), each of which must reach what it names
-   (``walk_words`` and ``myers_facts`` facts from the plain outputs; the
-   plain versions run on the host CPU, one process per core, from phase 3
-   on).
+   W = 32768 at M = 48; and the block NW's, ``block_edge_set``, at bands
+   640, 1024, 2048, 4096, 8192 and 16384, each with one that is not a
+   multiple of a warp's columns: walks along the band's edge, across warp
+   boundaries and in the last warp, pairs that do not fit, qlen 0, M not a
+   multiple of 16), each of which must reach what it names (``walk_words``,
+   ``myers_facts`` and ``block_walk_facts`` facts from the plain outputs,
+   the block kernel's columns a lane from the library; the plain versions
+   run on the host CPU, one process per core, from phase 3 on).
 5. aligner main path: 1024 pairs of 2 kb and 32 pairs of 10 kb (4 %
    substitutions, 1 % insertions, 1 % deletions) through
    ``create_aligner(max_bandwidth=1024, device="cuda")``, then 128 of the
@@ -102,6 +106,16 @@ Phases, each of which fails the run (nonzero exit, no result line):
    shape (phase 5's 128 engine pairs at the band that run gave them, W =
    4096) against its plain version and its bound, with the inputs of its
    cycles a row (ms, the longest query's rows).
+6c. the block NW (slice 15) on 32 pairs of 10 kb whose targets lack one
+   600-900-base stretch of their query (``sv_pairs``: a deletion
+   structural variant, band 1024): ``create_aligner(max_bandwidth=1024,
+   device="cuda")`` with the counts set to 0 just before runs every pair at
+   band 1024 in one NW launch and no plain version, and every optimal path
+   equals ``align_cpu``'s (``align_rows`` on the host, one process per
+   core; ``align_cpu`` itself on the first pair); the kernel alone against
+   ``banded_nw_final_plain`` at W = 1024, timed with its bound and cycles a
+   step; at W = 2048, 4096 and 16384 timed, its distances equal to the
+   exact edit distance where the pair is optimal at 1024.
 6b. each lockstep kernel at the largest covid bucket's shapes: CUDA events
    around every launch of the bucket's chain, once with the fused
    ``read_lockstep`` (the main path's) and once with the single-phase
@@ -178,7 +192,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
    that end inside a lane and on a lane's edge in the first and a later
    tile, homologous runs over 4 tiles, a score that wraps int32), each of
    which must reach what it names (``xdrop_facts``: a NumPy replay of every
-   seed, which must also equal the plain version); a 10 Mbp genome against
+   seed, which must also equal the plain version); the count kernel's own
+   sets with crafted extents (``xdrop_count_sets``: segment ends at every
+   byte of a word with query and target misaligned, sequences as odd-offset
+   views of lengths not multiples of 4, codes 4-7, segments across position
+   0 and the ends, spans 0, -1 and over 1,000, more seeds than the card
+   runs at once; ``count_facts``); a 10 Mbp genome against
    itself from a main-diagonal seed through the kernel alone, against its
    closed form (the maxima at the sequence ends, the scores the diagonal's
    sums); (b) the main path: a 10 Mbp random genome (the port's
@@ -231,7 +250,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
 7. a ``kernels`` JSON line with each kernel's launches, error against its
    plain version, times and bound (the mapper adds no entry; phase 11 adds
    ``xdrop_extend_cuda`` and ``myers_score_cuda``, redesigned in slice 14,
-   and ``xdrop_count_cuda``;
+   and ``xdrop_count_cuda``, redesigned in slice 15; phase 6c adds the
+   NW's ``block_kernel``: its launches, times and bound on the SV pairs;
    phase 12 adds ``launches_multi_device`` to the per-window POA kernel's
    and the NW's, and the NW's ``dist_ms``).
 8. the last line: ``{"ok": true, "device": {...}}``.
@@ -299,6 +319,13 @@ def packed(windows, weights, max_nodes, dev):
     seqs, wts, lens, nseqs, N = pack_windows(windows, weights, max_nodes)
     t = [torch.from_numpy(a).to(dev) for a in (seqs, wts, lens, nseqs)]
     return t, N
+
+
+def nvidia_smi(field):
+    """One field of the first card, as ``nvidia-smi --query-gpu`` prints it
+    without units."""
+    return subprocess.run(["nvidia-smi", f"--query-gpu={field}", "--format=csv,noheader,nounits"],
+                          capture_output=True, text=True, check=True).stdout.splitlines()[0]
 
 
 def cuda_ms(fn, reps=1):
@@ -555,7 +582,8 @@ ALIGNER_REPLACES = {
                           "genomeworks_tpu/ops/rle_traceback_pallas.py:462",
 }
 ALIGNER_STATE = {"myers_banded_cuda": "redesigned in slice 10",
-                 "banded_nw_cuda": "redesigned in slice 9",
+                 "banded_nw_cuda": "redesigned in slice 9 (the warp kernel) and slice 15 (the "
+                                   "block kernel)",
                  "rle_traceback_cuda": "redesigned in slice 9"}
 #: the kernels before their redesign, ms (PERF.md's table, an H100 80GB HBM3
 #: at 700 W): the NW a block per alignment and the traceback a thread per
@@ -618,6 +646,21 @@ def check_pairs(rng, M):
 DRIFT = 0
 
 
+def sv_pairs(rng, n=32, length=10000):
+    """``n`` pairs of ``length``-base queries against targets that lack one
+    stretch of 600-900 bases of the query (a deletion structural variant,
+    at a random place in its middle 80 %), then take phase 5's noise: 4 %
+    substitutions, 1 % insertions, 1 % deletions. Their length difference
+    (600-900 bases) starts them at band 1024, the block NW's."""
+    pairs = []
+    for q in rng.integers(0, 4, (n, length)).astype(np.uint8):
+        cut = int(rng.integers(600, 901))
+        at = int(rng.integers(length // 10, length * 9 // 10 - cut))
+        t = mutated(rng, np.concatenate([q[:at], q[at + cut:]]), 0.04, 0.01, 0.01)
+        pairs.append((BASES[q].tobytes().decode(), BASES[t].tobytes().decode()))
+    return pairs
+
+
 def oracle(pairs, fn=None):
     """``fn`` (default align_cpu) of every pair, in one process per core."""
     from genomeworks_tpu_torch.aligner.cpu_reference import align_cpu
@@ -640,6 +683,26 @@ def edit_distance(q: str, t: str) -> int:
         base[1:] = np.minimum(row[1:] + 1, row[:-1] + (b != c))
         row = k + np.minimum.accumulate(base - k)
     return int(row[-1])
+
+
+def align_rows(q: str, t: str) -> np.ndarray:
+    """``align_cpu``'s path: its backtrace (``nw_backtrace``) of the full
+    score matrix, whose rows are computed as ``edit_distance`` computes them
+    (the insertion closure a running minimum) in place of
+    ``nw_score_matrix``'s loop over cells: the same matrix, for 10-kb pairs
+    in about a second (``align_cpu`` takes a minute)."""
+    from genomeworks_tpu_torch.aligner.cpu_reference import nw_backtrace
+
+    a, b = (np.frombuffer(s.encode(), np.uint8) for s in (q, t))
+    k = np.arange(len(b) + 1)
+    scores = np.empty((len(a) + 1, len(b) + 1), np.int32)
+    scores[0] = k
+    base = np.empty(len(b) + 1, np.int64)
+    for i, c in enumerate(a, 1):
+        base[0] = i
+        base[1:] = np.minimum(scores[i - 1, 1:] + 1, scores[i - 1, :-1] + (b != c))
+        scores[i] = k + np.minimum.accumulate(base - k)
+    return nw_backtrace(scores)
 
 
 def consumed(path, q, t):
@@ -733,6 +796,9 @@ def aligner_edge_sets(rng, warp_max_band):
         return dict(label=label, pairs=pairs, bands=bands, forwards=forwards, rcaps=rcaps,
                     planes=list(planes), want=set(want))
 
+    def block_set(W, Wp):
+        return block_edge_set(rng, W, Wp)
+
     return {
         "bands": spec("NW bands 1, 31, 33 and 100", [drift] + noisy(12, 120, 0.12),
                       (1, 31, 33, 100), nw, want={"a band not a multiple of 32",
@@ -795,7 +861,115 @@ def aligner_edge_sets(rng, warp_max_band):
         "myers-w32768": spec("W = 32768 at M = 48", [(drift[0][:40], drift[1][:45])]
                              + noisy(3, 40, 0.1), (32768,), myers,
                              want={"W = 32768", "Myers, 33 words a lane"}),
+        **{f"block-{W}": block_set(W, Wp) for W, Wp in BLOCK_SET_BANDS},
     }
+
+
+#: the block NW's edge sets: each band with one near it that is neither a
+#: multiple of the columns a warp holds nor of a lane's (one lane partial)
+BLOCK_SET_BANDS = ((640, 702), (1024, 1004), (2048, 2004), (4096, 4004), (8192, 8004),
+                   (16384, 16004))
+
+
+def block_cols(W):
+    """The block NW's band columns a lane at band W (csrc/banded_nw.cu
+    block_cols; the edge sets check that the library agrees)."""
+    return 4 if W <= 768 else 8 if W <= 2048 else 16 if W <= 4096 else 32
+
+
+def block_edge_set(rng, W, Wp):
+    """The block NW's edge set at band W and at Wp near it, which is a
+    multiple neither of the columns a warp holds nor of a lane's: for each
+    band a pair whose target is longer by the band less 3 (one column of
+    slack each side: the path runs from the band's first warp to its last,
+    on its edge), a pair that fits neither band, an empty query, a pair
+    with an insertion of a warp's columns and 40 more (its path crosses a
+    warp boundary in the band's middle), two short noisy pairs and one of
+    two warps' columns and 200 more (whose warps in the band's middle run
+    steps with every column inside the target, the kernel's path without
+    the band's bounds); packed at M = the longest query (not a multiple of
+    16: rows past most queries)."""
+    def rnd(n):
+        return BASES[rng.integers(0, 4, n)].tobytes().decode()
+
+    warp_cols = 32 * block_cols(W)
+    a, b = rnd(61), rnd(60)
+    q1, q2 = rnd(100), rnd(90)
+    pairs = [(q1, q1 + rnd(W - 3)), (q2, q2 + rnd(Wp - 3)), (rnd(10), rnd(W + 20)),
+             ("", rnd(50)), (a + rnd(warp_cols + 40) + b, a + b)]
+    pairs += random_pairs(rng, 2, 150, 0.1, 0.1, 0.1)
+    pairs += random_pairs(rng, 1, 2 * warp_cols + 200, 0.04, 0.01, 0.01)
+    want = {f"the block kernel, {block_cols(w)} columns a lane" for w in (W, Wp)}
+    want |= {"a last warp with partial columns", "a lane with partial columns",
+             "M not a multiple of 16", "rows past qlen",
+             "qlen 0", "a pair that does not fit the band", "k clamped outside the band",
+             "a walk across a warp boundary", "a walk in the last warp",
+             "a warp step with a column at j <= 0 or past tlen",
+             "a warp step with every column inside the target"}
+    return dict(label=f"the block NW at W = {W} and {Wp}", pairs=pairs, bands=(W, Wp),
+                forwards=("banded_nw_cuda",), rcaps=(), planes=[], want=want, rows="exact")
+
+
+def edge_pack(spec, dev):
+    """An edge set's pairs packed as the aligner packs a chunk
+    (``pack_shape``), or with M = the longest query where the set says
+    ``rows="exact"``."""
+    from genomeworks_tpu_torch.aligner.aligner import pack_pairs, pack_shape
+    from genomeworks_tpu_torch.core.bucketing import next_pow2
+
+    s = next_pow2(max(len(x) for pair in spec["pairs"] for x in pair))
+    M, N = pack_shape(spec["pairs"], s)
+    if spec.get("rows") == "exact":
+        M = max(1, max(len(p[0]) for p in spec["pairs"]))
+    return pack_pairs(spec["pairs"], M, N, dev)
+
+
+def block_step_facts(qlen, tlen, dlo, M, W, cols):
+    """Which of the block NW's two step paths its warps take on these pairs
+    (``banded_nw_kernel``: the general one where a lane that commits a row
+    has a column at j <= 0 or past tlen, or past the band; the other where
+    every such lane's columns are inside the target). Lane l of warp w
+    computes row s - l at the warp's step s over band columns
+    (32 w + l) cols ..."""
+    facts = set()
+    warps = -(-W // (32 * cols))
+    s = np.arange(1, M + 32)[:, None]
+    lane = np.arange(32)[None, :]
+    for ql, tl, d in zip(qlen, tlen, dlo):
+        for w in range(warps):
+            k0 = (32 * w + lane) * cols
+            i = s - lane
+            active = (i >= 1) & (i <= M) & (k0 < W)
+            jb = i + int(d) + k0
+            gen = active & ((jb <= 0) | (jb + cols - 1 > int(tl)) | (W - k0 < cols))
+            general = gen.any(axis=1)
+            if general.any():
+                facts.add("a warp step with a column at j <= 0 or past tlen")
+            if (~general & active.any(axis=1)).any():
+                facts.add("a warp step with every column inside the target")
+    return facts
+
+
+def block_walk_facts(paths, qlen, tlen, dlo, W, cols):
+    """What the walks of a block-NW plane reach of its warps (32 lanes of
+    ``cols`` band columns each): a walk whose band columns lie in two
+    warps, and one in the last warp."""
+    facts = set()
+    per = 32 * cols
+    last = (W - 1) // per
+    for path, ql, tl, d in zip(paths, qlen, tlen, dlo):
+        if ql == 0 or tl == 0:
+            continue
+        rev = np.asarray(path[::-1], np.int64)
+        i = ql - np.concatenate(([0], np.cumsum(rev != 2)[:-1]))
+        j = tl - np.concatenate(([0], np.cumsum(rev != 3)[:-1]))
+        main = (i > 0) & (j > 0)
+        warp = np.clip(j - i - d, 0, W - 1)[main] // per
+        if len(np.unique(warp)) > 1:
+            facts.add("a walk across a warp boundary")
+        if (warp == last).any():
+            facts.add("a walk in the last warp")
+    return facts
 
 
 #: the bands on either side of each change of the Myers kernel's words a lane
@@ -843,18 +1017,15 @@ def aligner_edge_plain(spec, dev):
     forward's outputs or None, {rcap: the traceback's outputs}) at the
     set's rcaps and at one that holds every run. The NW's outputs are those
     of its launch with the distance: (dist, codes, fits)."""
-    from genomeworks_tpu_torch.aligner.aligner import pack_pairs, pack_shape
     from genomeworks_tpu_torch.aligner.banded_nw import band_offset, banded_nw_final_plain
     from genomeworks_tpu_torch.aligner.myers_banded_model import myers_banded_plain
     from genomeworks_tpu_torch.aligner.rle_traceback import rle_traceback_plain
-    from genomeworks_tpu_torch.core.bucketing import next_pow2
 
     # the NW's plain version with the distance output: (dist, codes, fits)
     plain = {"myers_banded_cuda": myers_banded_plain, "banded_nw_cuda": banded_nw_final_plain}
     planes = []
     if spec["pairs"]:
-        s = next_pow2(max(len(x) for pair in spec["pairs"] for x in pair))
-        q, t, qlen, tlen = pack_pairs(spec["pairs"], *pack_shape(spec["pairs"], s), dev)
+        q, t, qlen, tlen = edge_pack(spec, dev)
         for W in spec["bands"]:
             for fwd in spec["forwards"]:
                 out = plain[fwd](q, t, qlen, tlen, W)
@@ -869,6 +1040,13 @@ def aligner_edge_plain(spec, dev):
         result.append((name, W, fwd_out, {rcap: rle_traceback_plain(codes, qlen, tlen, dlo, W, rcap)
                                           for rcap in (*spec["rcaps"], full)}))
     return result
+
+
+def sv_align_cpu_job():
+    """``align_cpu`` of the first of phase 6c's SV pairs (a worker's job)."""
+    from genomeworks_tpu_torch.aligner.cpu_reference import align_cpu
+
+    return align_cpu(*sv_pairs(np.random.default_rng(15))[0])
 
 
 def aligner_edge_plain_job(key, warp_max_band):
@@ -888,21 +1066,19 @@ def aligner_edge_compare(spec, dev, warp_max_band, err=None, plain=None):
     fails the run). ``plain``: the plain outputs (``aligner_edge_plain_job``),
     else they are computed on ``dev``. Returns the facts the set reached;
     adds each kernel's largest error to ``err``."""
-    from genomeworks_tpu_torch.aligner.aligner import pack_pairs, pack_shape
     from genomeworks_tpu_torch.aligner.banded_nw import band_offset
     from genomeworks_tpu_torch.aligner.rle_traceback import runs_to_states
-    from genomeworks_tpu_torch.core.bucketing import next_pow2
     from genomeworks_tpu_torch.ops import banded_nw_cuda, myers_banded_cuda, rle_traceback_cuda
 
     err = {} if err is None else err
+    block = {}  # plane index -> the block NW's columns a lane
     kern = {"myers_banded_cuda": myers_banded_cuda.myers_banded_cuda,
             "banded_nw_cuda": banded_nw_cuda.banded_nw_cuda}
     on_dev = lambda out: tuple(torch.as_tensor(x).to(dev) for x in out)  # noqa: E731
     plain = aligner_edge_plain(spec, dev) if plain is None else plain
     label, facts, planes = spec["label"], set(), []
     if spec["pairs"]:
-        s = next_pow2(max(len(x) for pair in spec["pairs"] for x in pair))
-        q, t, qlen, tlen = pack_pairs(spec["pairs"], *pack_shape(spec["pairs"], s), dev)
+        q, t, qlen, tlen = edge_pack(spec, dev)
         for W in spec["bands"]:
             for fwd in spec["forwards"]:
                 out = kern[fwd](q, t, qlen, tlen, W)
@@ -922,6 +1098,25 @@ def aligner_edge_compare(spec, dev, warp_max_band, err=None, plain=None):
                     facts.add("a band not a multiple of 32" if W % 32 else "a band of 32s")
                     facts.add("the warp kernel's widest band" if W == warp_max_band else
                               "the block kernel" if W > warp_max_band else "the warp kernel")
+                    if W > warp_max_band:
+                        cols = banded_nw_cuda.load_library().banded_nw_block_cols(W)
+                        facts.add(f"the block kernel, {cols} columns a lane")
+                        block[len(planes) - 1] = cols
+                        if W % (32 * cols):
+                            facts.add("a last warp with partial columns")
+                        if W % cols:
+                            facts.add("a lane with partial columns")
+                        facts |= block_step_facts(
+                            qlen.cpu().numpy(), tlen.cpu().numpy(),
+                            band_offset(qlen, tlen, W).cpu().numpy(), q.shape[1], W, cols)
+                    if q.shape[1] % 16:
+                        facts.add("M not a multiple of 16")
+                    if bool((qlen < q.shape[1]).any()):
+                        facts.add("rows past qlen")
+                    if bool((qlen == 0).any()):
+                        facts.add("qlen 0")
+                    if not bool(out[1].all()):
+                        facts.add("a pair that does not fit the band")
                 if fwd == "myers_banded_cuda":
                     M = q.shape[1]
                     facts |= myers_facts(
@@ -933,7 +1128,8 @@ def aligner_edge_compare(spec, dev, warp_max_band, err=None, plain=None):
         planes.append(tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                             for a in (codes, ql, tl)))
     TB = "rle_traceback_cuda"
-    for (codes, qlen, tlen), (name, W, _, tb_ref) in zip(planes, plain, strict=True):
+    for p, ((codes, qlen, tlen), (name, W, _, tb_ref)) in enumerate(zip(planes, plain,
+                                                                        strict=True)):
         dlo = band_offset(qlen, tlen, W)
         for rcap, ref in tb_ref.items():
             out = rle_traceback_cuda.rle_traceback_cuda(codes, qlen, tlen, dlo, W, rcap)
@@ -946,16 +1142,20 @@ def aligner_edge_compare(spec, dev, warp_max_band, err=None, plain=None):
             facts.add("more than 32 runs")
         if (nruns > 4096).any():
             facts.add("more than 4096 runs")
-        walk_words([runs_to_states(r, int(n)) for r, n in zip(runs, nruns)],
-                   qlen.cpu().numpy(), tlen.cpu().numpy(), dlo.cpu().numpy(), W,
+        paths = [runs_to_states(r, int(n)) for r, n in zip(runs, nruns)]
+        walk_words(paths, qlen.cpu().numpy(), tlen.cpu().numpy(), dlo.cpu().numpy(), W,
                    codes.cpu().numpy(), facts)
+        if p in block:
+            facts |= block_walk_facts(paths, qlen.cpu().numpy(), tlen.cpu().numpy(),
+                                      dlo.cpu().numpy(), W, block[p])
     return facts
 
 
-def aligner_phases(dev, ops, edge_plain):
+def aligner_phases(dev, ops, edge_plain, sv_oracle=None):
     """Phases 4-6; returns the kernels line's entries of the aligner.
     ``edge_plain``: for each aligner edge set, a future of its plain
-    outputs (``aligner_edge_plain_job``)."""
+    outputs (``aligner_edge_plain_job``); ``sv_oracle``: a future of
+    ``sv_align_cpu_job``, or None."""
     from genomeworks_tpu_torch.aligner import create_aligner
     from genomeworks_tpu_torch.aligner.aligner import pack_pairs, pack_shape
     from genomeworks_tpu_torch.aligner.banded_nw import (
@@ -1211,6 +1411,68 @@ def aligner_phases(dev, ops, edge_plain):
                   "bound_by": "bytes" if f_bytes / HBM_BYTES_PER_S >= f_ops / SCALAR_OPS_PER_S
                   else "operations"}
 
+    # -- 6c. the block NW on pairs with a deletion structural variant ----------
+    # 32 pairs of 10 kb whose targets lack 600-900 bases start at band 1024:
+    # create_aligner's default path for them is one block-NW launch
+    NW = "banded_nw_cuda"
+    sv = sv_pairs(np.random.default_rng(15))
+    sv_ref = sv_oracle.result() if sv_oracle is not None else None
+    sv_paths = oracle(sv, align_rows)
+    if sv_ref is not None and not np.array_equal(sv_ref, sv_paths[0]):
+        fail("align_rows differs from align_cpu on the first SV pair")
+    (sv_alns, sv_wall, sv_bands), sv_launches, sv_plain = counted(lambda: run(sv))
+    if dict(sv_bands) != {1024: len(sv)} or sv_launches[NW] != 1 or sv_plain:
+        fail(f"the SV pairs ran bands {dict(sv_bands)}, launches {sv_launches}, "
+             f"{sv_plain} plain-version calls")
+    n_opt = 0
+    for b, aln in enumerate(sv_alns):
+        if aln.is_optimal:
+            n_opt += 1
+            if not np.array_equal(aln.states, sv_paths[b]):
+                fail(f"SV pair {b}: optimal path differs from align_cpu's")
+    if not n_opt:
+        fail("no SV pair was flagged optimal")
+    M, N = pack_shape(sv, 16384)
+    q, t, qlen, tlen = pack_pairs(sv, M, N, dev)
+    cols = libs[NW].banded_nw_block_cols(1024)
+    sv_ms, sv_out = cuda_ms(lambda: ops[NW]._launch(libs[NW], q, t, qlen, tlen, 1024), reps=3)
+    svp_ms, svp_out = cuda_ms(lambda: banded_nw_final_plain(q, t, qlen, tlen, 1024))
+    err[NW] = max(err[NW], compare(f"{NW} (block) on the SV pairs, W=1024", sv_out, svp_out[1:]),
+                  compare(f"{NW} (block) with dist on the SV pairs, W=1024",
+                          ops[NW]._launch(libs[NW], q, t, qlen, tlen, 1024, True), svp_out))
+    # wider bands on the same pairs: the launch alone; the distances of the
+    # pairs optimal at 1024 are their exact edit distances at every band
+    exact = torch.tensor([int((np.asarray(p) != 0).sum()) for p in sv_paths], device=dev)
+    opt = torch.tensor([aln.is_optimal for aln in sv_alns], device=dev)
+    sv_wide = {}
+    for W in (2048, 4096, 16384):
+        sv_wide[W], _ = cuda_ms(lambda: ops[NW]._launch(libs[NW], q, t, qlen, tlen, W), reps=3)
+        d = ops[NW]._launch(libs[NW], q, t, qlen, tlen, W, True)[0]
+        if not torch.equal(d[opt], exact[opt]):
+            fail(f"{NW} (block) at W={W}: a distance differs from the exact edit distance")
+    ql = qlen.cpu().numpy().astype(np.int64)
+    sv_bytes = int(ql.sum() + tlen.cpu().numpy().astype(np.int64).sum()) \
+        + nbytes((qlen, tlen, sv_out[1])) + 4 * 1024 * int(((ql + 15) // 16).sum())
+    sv_ops = NW_CELL_OPS * 1024 * int(ql.sum())
+    sv_tb, sv_to = sv_bytes / HBM_BYTES_PER_S * 1e3, sv_ops / SCALAR_OPS_PER_S * 1e3
+    clock = float(nvidia_smi("clocks.max.sm").split()[0])
+    sv_cycles = sv_ms * 1e-3 * clock * 1e6 / (M + 31 + 32 * (-(-1024 // (32 * cols)) - 1))
+    print(f"time {NW} (block, {cols} columns a lane, {-(-1024 // (32 * cols))} warps) on 32 SV "
+          f"pairs of 10 kb, M={M}, N={N}, W=1024: create_aligner {sv_wall:.4f} s wall, bands "
+          f"{dict(sv_bands)}, launches {sv_launches}, {n_opt} optimal paths == align_cpu's; "
+          f"kernel {sv_ms:.4f} ms (the launch alone), plain {svp_ms:.1f} ms; bound {sv_bytes} "
+          f"bytes -> {sv_tb:.6f} ms, {sv_ops} int32 ops -> {sv_to:.6f} ms; "
+          f"{sv_cycles:.1f} cycles a step at the card's max SM clock ({clock:.0f} MHz); at W = "
+          + ", ".join(f"{W}: {v:.4f} ms" for W, v in sv_wide.items())
+          + " (distances == the exact edit distance)", flush=True)
+    block_kernel = {
+        "timed_on": f"32 pairs of 10 kb lacking 600-900 bases, M={M}, N={N}, W=1024",
+        "columns_a_lane": cols, "launches": sv_launches[NW], "ms": sv_ms, "plain_ms": svp_ms,
+        "bound_ms": max(sv_tb, sv_to), "bound_by": "bytes" if sv_tb >= sv_to else "operations",
+        "cycles_a_step_at_max_clock": sv_cycles,
+        "ms_at_band": {str(W): v for W, v in sv_wide.items()}, "main_path_s": sv_wall,
+    }
+
     entries = []
     for name, tm in timed.items():
         t_bytes = tm["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -1236,6 +1498,7 @@ def aligner_phases(dev, ops, edge_plain):
             "ms_at_pow2_shape": tm["old_ms"],
             **({"myers_full": myers_full} if name == MY else {}),
             **(timed_dist if name == "banded_nw_cuda" else {}),
+            **({"block_kernel": block_kernel} if name == "banded_nw_cuda" else {}),
             "main_path_s": main_wall,
             "alignments_per_s": len(every) / main_wall,
         })
@@ -2924,6 +3187,161 @@ def xdrop_lane_sets(rng):
     }
 
 
+def xdrop_count_sets(rng):
+    """The match-count kernel's edge sets, with left and right extents given
+    (not the extension's): label -> dict(q, t, qoff, toff, seeds (n, 2) of
+    (query, target) positions, left, right, want). The sequences lie on the
+    card at byte offsets qoff and toff of their buffers (views, whose
+    data_ptr is then odd or even as the offset is); ``count_facts`` reads
+    what a set reaches."""
+    def codes(n, top=8):
+        return rng.integers(0, top, n).astype(np.uint8)
+
+    def matched(q, t, seeds, left, right, share=2):
+        """Copy the query into the target along every ``share``-th seed's
+        segment, so that most of its positions match."""
+        for (qs, ts), l, r in list(zip(seeds.tolist(), left.tolist(), right.tolist()))[::share]:
+            o = np.arange(-l, min(r, 3000) + 1)
+            ok = (qs + o >= 0) & (qs + o < len(q)) & (ts + o >= 0) & (ts + o < len(t))
+            t[ts + o[ok]] = q[qs + o[ok]]
+        return t
+
+    sets = {}
+    # segment ends at every byte offset of a word, query and target misaligned
+    # (a view at offset 1 against one at 2), lengths not multiples of 4,
+    # codes 0-7
+    q, t = codes(5003), codes(4999)
+    n = 3000
+    ts = rng.integers(100, 4800, n)
+    seeds = np.stack([np.clip(ts + rng.integers(-7, 8, n), 0, 4900), ts], 1)
+    left, right = rng.integers(0, 70, n), rng.integers(-1, 130, n)
+    sets["word ends"] = dict(q=q, t=matched(q, t, seeds, left, right), qoff=1, toff=2,
+                             seeds=seeds, left=left, right=right,
+                             want={*(f"a segment end at byte {b} of a word" for b in range(4)),
+                                   "query and target misaligned", "codes 4-7",
+                                   "a length not a multiple of 4", "an odd-offset view",
+                                   "the word path"})
+    # segments across position 0 and across the sequences' ends
+    q, t = codes(2001, 4), codes(2003, 4)
+    lo = rng.integers(0, 40, 200)
+    hi = rng.integers(1950, 2001, 200)
+    seeds = np.concatenate([np.stack([lo, lo + rng.integers(0, 3, 200)], 1),
+                            np.stack([hi, np.minimum(hi + rng.integers(0, 3, 200), 2002)], 1)])
+    left = np.concatenate([lo + rng.integers(0, 30, 200), rng.integers(0, 20, 200)])
+    right = np.concatenate([rng.integers(0, 30, 200), 2003 - hi + rng.integers(0, 30, 200)])
+    sets["sequence ends"] = dict(q=q, t=matched(q, t, seeds, left, right), qoff=3, toff=0,
+                                 seeds=seeds, left=left, right=right,
+                                 want={"a segment across position 0",
+                                       "a segment across a sequence end", "the clamped path",
+                                       "an odd-offset view"})
+    # span 0, left + right = -1, spans over 1,000 positions
+    q, t = codes(20_000, 4), codes(20_000, 4)
+    n = 600
+    ts = rng.integers(3000, 17_000, n)
+    seeds = np.stack([ts + rng.integers(-2, 3, n), ts], 1)
+    left = rng.integers(0, 1500, n)
+    right = np.where(np.arange(n) % 3 == 0, -left, np.where(np.arange(n) % 3 == 1, -left - 1,
+                                                            rng.integers(600, 1500, n)))
+    sets["spans"] = dict(q=q, t=matched(q, t, seeds, left, right), qoff=0, toff=0, seeds=seeds,
+                         left=left, right=right,
+                         want={"span 0", "left + right = -1", "a span over 1,000 positions"})
+    # more seeds than the card runs at once
+    q = codes(1_000_000, 4)
+    t = q.copy()
+    n = 50_000
+    ts = rng.integers(0, len(q), n)
+    seeds = np.stack([ts, ts], 1)
+    left, right = rng.integers(0, 80, n), rng.integers(0, 80, n)
+    flip = rng.random(len(t)) < 0.1
+    t[flip] = (t[flip] + 1) % 4
+    sets["waves"] = dict(q=q, t=t, qoff=0, toff=0, seeds=seeds, left=left, right=right,
+                         want={"more seeds than one wave"})
+    for spec in sets.values():
+        for k in ("left", "right"):
+            spec[k] = spec[k].astype(np.int32)
+        spec["seeds"] = spec["seeds"].astype(np.int32)
+    return sets
+
+
+def count_facts(spec, qaddr, taddr, wave):
+    """What a count set reaches, from its inputs and the byte addresses mod 4
+    of its sequences on the card (``qaddr``, ``taddr``): where segments end
+    in a word, the kernel's two read paths (``xdrop_count_kernel``: words
+    where the seed's window, 3 bytes before it and 4 after, lies in both
+    sequences), spans, lengths, views, codes, and more seeds than ``wave``
+    (the seeds the card runs at once)."""
+    from genomeworks_tpu_torch.ops.xdrop_cuda import COUNT_LANES, LANE_POSITIONS
+
+    q, t = spec["q"], spec["t"]
+    Lq, Lt = len(q), len(t)
+    qs, ts = (spec["seeds"][:, i].astype(np.int64) for i in (0, 1))
+    left, right = spec["left"].astype(np.int64), spec["right"].astype(np.int64)
+    span = left + right
+    t0, q0 = ts - left, qs - left
+    lo = np.maximum(0, np.maximum(-t0, -q0))
+    hi = np.minimum(span, np.minimum(Lt - 1 - t0, Lq - 1 - q0))
+    live = hi >= lo
+    facts = set()
+    npos = np.where(live, hi - lo + 1, 0)
+    tlo, qlo = t0 + lo, q0 + lo
+    for b in np.unique((taddr + tlo + npos - 1)[live] % 4).tolist():
+        facts.add(f"a segment end at byte {b} of a word")
+    if ((taddr + tlo - qaddr - qlo)[live] % 4 != 0).any():
+        facts.add("query and target misaligned")
+    passes = -(-npos // (COUNT_LANES * LANE_POSITIONS))
+    words = (tlo >= 3) & (qlo >= 3) & (tlo + passes * COUNT_LANES * LANE_POSITIONS + 4 <= Lt) \
+        & (qlo + passes * COUNT_LANES * LANE_POSITIONS + 4 <= Lq)
+    if (words & live).any():
+        facts.add("the word path")
+    if (~words & live).any():
+        facts.add("the clamped path")
+    if ((t0 < 0) | (q0 < 0))[live].any():
+        facts.add("a segment across position 0")
+    if ((t0 + span >= Lt) | (q0 + span >= Lq))[live].any():
+        facts.add("a segment across a sequence end")
+    if (span == 0).any():
+        facts.add("span 0")
+    if (span == -1).any():
+        facts.add("left + right = -1")
+    if (span > 1000).any():
+        facts.add("a span over 1,000 positions")
+    if Lq % 4 or Lt % 4:
+        facts.add("a length not a multiple of 4")
+    if qaddr % 2 or taddr % 2:
+        facts.add("an odd-offset view")
+    for i in np.flatnonzero(live)[:2000]:
+        o = np.arange(lo[i], hi[i] + 1)
+        a, b = t[t0[i] + o], q[q0[i] + o]
+        if ((a == b) & (a >= 4)).any():
+            facts.add("codes 4-7")
+            break
+    if len(qs) > wave:
+        facts.add("more seeds than one wave")
+    return facts
+
+
+def count_compare(spec, dev):
+    """One count set on ``dev``: the sequences copied to the card at their
+    offsets, the kernel against ``count_matches_plain`` bit for bit
+    (``compare`` fails the run). Returns the facts it reached."""
+    from genomeworks_tpu_torch.extender.xdrop_plain import count_matches_plain
+    from genomeworks_tpu_torch.ops.xdrop_cuda import COUNT_LANES, xdrop_count_cuda
+
+    def placed(a, off):
+        buf = torch.zeros(len(a) + off, dtype=torch.uint8, device=dev)
+        buf[off:] = torch.from_numpy(a).to(dev)
+        return buf[off:]
+
+    qd, td = placed(spec["q"], spec["qoff"]), placed(spec["t"], spec["toff"])
+    args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            for x in (spec["seeds"][:, 0], spec["seeds"][:, 1], spec["left"], spec["right"])]
+    compare("xdrop_count on a count set", (xdrop_count_cuda(qd, td, *args),),
+            (count_matches_plain(qd, td, *args),))
+    props = torch.cuda.get_device_properties(dev)
+    wave = props.multi_processor_count * props.max_threads_per_multi_processor // COUNT_LANES
+    return count_facts(spec, qd.data_ptr() % 4, td.data_ptr() % 4, wave)
+
+
 def myers_score_edge_sets(rng, tmax=16):
     """The batched Myers kernel's edge sets, one launch each: label ->
     (queries, targets). Query lengths 0, 1 and 32 j +- 1 bases for j = 1 ..
@@ -3076,6 +3494,14 @@ def extender_phase(dev):
             fail(f"the extender edge set {label!r} did not reach {sorted(want - facts)}")
         print(f"check xdrop {label}: {len(seeds)} seeds, both kernels == plain (width "
               f"{width}) == the NumPy replay; reaches {sorted(want)}")
+
+    # the count kernel's own sets: crafted extents, views, ends and waves
+    for label, spec in xdrop_count_sets(np.random.default_rng(15)).items():
+        facts = count_compare(spec, dev)
+        if not spec["want"] <= facts:
+            fail(f"the count set {label!r} did not reach {sorted(spec['want'] - facts)}")
+        print(f"check xdrop_count {label}: {len(spec['seeds'])} seeds, kernel == plain; reaches "
+              f"{sorted(spec['want'])}")
 
     # a 10 Mbp genome against itself, a seed on the main diagonal: the maximum
     # sits at both sequence ends and each side's score is its diagonal's sum
@@ -3293,7 +3719,8 @@ def extender_phase(dev):
         "self_10mbp_ms": long_ms, "main_path_s": wall, "seeds_per_s": len(seeds) / wall,
         "device_ms_main_path": dev_ms.get("xdrop_extend_kernel", 0.0),
     }, {
-        "name": "xdrop_count_cuda", **common, "source": XDROP_SOURCE,
+        "name": "xdrop_count_cuda", **common, "state": "redesigned in slice 15",
+        "source": XDROP_SOURCE, "count_lanes": xdrop_cuda.COUNT_LANES,
         "replaces": "none (XLA in the JAX package: genomeworks_tpu/extender/xdrop.py:257)",
         "launches": launches["xdrop_count_cuda"], "ms": cnt_ms, "plain_ms": ccp_ms,
         **bound(cnt_bytes, XCOUNT_POS_OPS * counted),
@@ -3877,6 +4304,7 @@ def main() -> int:
     edge_pool = ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
                                     mp_context=multiprocessing.get_context("spawn"))
     warp_max = banded_nw_cuda.load_library().banded_nw_warp_max_band()
+    sv_oracle = edge_pool.submit(sv_align_cpu_job)  # a minute of one core: first
     edge_plain = {key: edge_pool.submit(aligner_edge_plain_job, key, warp_max)
                   for key in aligner_edge_sets(np.random.default_rng(8), warp_max)}
 
@@ -3987,7 +4415,7 @@ def main() -> int:
           f"kernel: {EARLIER_COVID_MS:.3f} ms)")
 
     # -- 4-6. the aligner -----------------------------------------------------
-    aligner_entries = aligner_phases(dev, aligner_ops, edge_plain)
+    aligner_entries = aligner_phases(dev, aligner_ops, edge_plain, sv_oracle)
     edge_pool.shutdown()
 
     # -- 6b. the lockstep kernels alone at the largest covid bucket's shapes -----

@@ -2,7 +2,8 @@
 NW and the RLE traceback) on one card.
 
     python3 experiments/torch_aligner_check.py [--parent DIR]
-        [--myers NAME=SOURCE[:MACRO~VALUE...]] ... [--scan]
+        [--myers NAME=SOURCE[:MACRO~VALUE...]] ...
+        [--nw NAME=SOURCE[:MACRO~VALUE...]] ... [--scan]
 
 1. Builds csrc/myers_banded.cu, csrc/banded_nw.cu and csrc/rle_traceback.cu,
    their debug builds (``-DMYERS_STATS=1``: clock64 cycles of a Myers row
@@ -14,8 +15,9 @@ NW and the RLE traceback) on one card.
    genomeworks_tpu_torch/csrc/myers_banded.cu, banded_nw.cu and
    rle_traceback.cu, e.g. the parent commit unpacked with ``git archive``),
    those three sources too, and each ``--myers`` version of
-   ``csrc/myers_banded.cu`` (SOURCE an absolute or relative path, built with
-   ``-DMACRO=VALUE`` for each ``:MACRO~VALUE``), through ``_build.build``
+   ``csrc/myers_banded.cu`` and ``--nw`` version of ``csrc/banded_nw.cu``
+   (SOURCE an absolute or relative path, built with ``-DMACRO=VALUE`` for
+   each ``:MACRO~VALUE``), through ``_build.build``
    with an absolute source path, one nvcc a library, started together (the
    same source and macros are one library). Prints each build's registers,
    shared memory and spills of every instantiation as ptxas reports them.
@@ -51,6 +53,15 @@ NW and the RLE traceback) on one card.
 4. With ``--scan``: the Myers debug build's cycles a row at W = 64 and 1024
    with 1, 4, 128 and 512 of the 2-kb pairs launched (does one alignment
    alone take as long a row as many?).
+5. The block NW (bands past the warp kernel's 512) on ``chip_smoke``'s 32
+   SV pairs (10 kb, each target lacking 600-900 bases of its query, band
+   1024 on the aligner's path) at W = 1024, 2048, 4096 and 16384, in the
+   same turns (every turn's outputs equal the first's; this build's at
+   1024 equal ``banded_nw_final_plain``), with each ``--nw`` version in
+   the same turns (the SV shapes only), and the debug build's block
+   counters there (and those of each ``--nw`` version built with
+   ``NW_STATS~1``): thread 0's cycles a step and lane 0's cycles waiting
+   for the neighbouring warps' words, a warp.
 
 Prints the card's name and power limit first. Needs CUDA and nvcc.
 """
@@ -85,7 +96,9 @@ from genomeworks_tpu_torch.ops import rle_traceback_cuda as tb  # noqa: E402
 #: the debug builds' counters, in the order of the sources' MS_* / NS_* / TS_*
 #: enums
 MYERS_STATS = ("pairs", "rows", "cycles", "wait_cycles", "flush_cycles", "groups")
-NW_STATS = ("pairs", "rows", "cycles")
+NW_STATS = ("pairs", "rows", "cycles", "block_pairs", "block_rows", "block_cycles",
+            "block_warps", "block_wait")
+SV_BANDS = (1024, 2048, 4096, 16384)  # the block NW's bands on the SV pairs
 TB_STATS = ("walks", "cycles", "steps", "moves", "loads", "prefetched")
 W = 64  # the main path's first band
 LAUNCH = {"myers": "myers_banded_launch", "nw": "banded_nw_launch", "tb": "rle_traceback_launch"}
@@ -131,6 +144,8 @@ def main() -> int:
     ap.add_argument("--parent", default="")
     ap.add_argument("--myers", action="append", default=[],
                     help="NAME=SOURCE[:MACRO~VALUE...], a version of the Myers kernel")
+    ap.add_argument("--nw", action="append", default=[],
+                    help="NAME=SOURCE[:MACRO~VALUE...], a version of the banded NW")
     ap.add_argument("--scan", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -148,13 +163,14 @@ def main() -> int:
         for key, mod in (("myers", myers), ("nw", nw), ("tb", tb)):
             jobs[(key, "parent")] = (os.path.abspath(os.path.join(
                 args.parent, "genomeworks_tpu_torch", "csrc", mod.SOURCE)), None)
-    versions = []
-    for arg in args.myers:
-        name, rest = arg.split("=", 1)
-        path, *defs = rest.split(":")
-        versions.append(name)
-        jobs[("myers", name)] = (os.path.abspath(path),
-                                 {d.split("~")[0]: d.split("~")[1] for d in defs} or None)
+    versions, nw_versions, nw_debug = [], [], []
+    for key, given, found in (("myers", args.myers, versions), ("nw", args.nw, nw_versions)):
+        for arg in given:
+            name, rest = arg.split("=", 1)
+            path, *defs = rest.split(":")
+            defs = {d.split("~")[0]: d.split("~")[1] for d in defs} or None
+            (nw_debug if defs and "NW_STATS" in defs else found).append(name)
+            jobs[(key, name)] = (os.path.abspath(path), defs)
     # one nvcc a library, started together (a parent source equal to this
     # checkout's is the same library)
     paths = {key: _build.library_path(*job) for key, job in jobs.items()}
@@ -171,7 +187,7 @@ def main() -> int:
             lib = {"nw": nw, "tb": tb, "myers": myers}[key].bind(lib)
         else:  # the parent's or a version's launch function, as this checkout binds it
             ref = libs[(key, "this")]
-            for fn in (LAUNCH[key], "myers_banded_stats"):
+            for fn in (LAUNCH[key], "myers_banded_stats", "banded_nw_stats"):
                 if hasattr(lib, fn) and hasattr(ref, fn):
                     getattr(lib, fn).argtypes = getattr(ref, fn).argtypes
                     getattr(lib, fn).restype = ctypes.c_int
@@ -200,6 +216,15 @@ def main() -> int:
             raise RuntimeError(f"the parent's banded_nw_launch failed: CUDA error {rc}")
         return codes, fits
 
+    sv = chip_smoke.sv_pairs(np.random.default_rng(15))
+    sv_M, sv_N = pack_shape(sv, 16384)
+    sv_in = pack_pairs(sv, sv_M, sv_N, dev)
+    ok_sv = all(torch.equal(a, b) for a, b in zip(
+        nw_launch("this", *sv_in, 1024, True), banded_nw_final_plain(*sv_in, 1024)))
+    print(f"nw (block) SV pairs W=1024: this build == banded_nw_final_plain: {ok_sv}", flush=True)
+    if not ok_sv:
+        print("SOME RUN DIFFERS")
+        return 1
     rng = np.random.default_rng(2025)
     short = chip_smoke.random_pairs(rng, 1024, 2000, 0.04, 0.01, 0.01)[:512]
     long = chip_smoke.random_pairs(rng, 32, 10000, 0.04, 0.01, 0.01)
@@ -227,7 +252,7 @@ def main() -> int:
             print("SOME RUN DIFFERS")
             return 1
 
-    names = (["parent"] if args.parent else []) + ["this"] + versions
+    names = (["parent"] if args.parent else []) + ["this"] + versions + nw_versions
     order = names + names[::-1]
     ref, times, ok = {}, {}, True
     dists = {}  # this build's distances on the 10-kb pairs, by shape
@@ -240,10 +265,12 @@ def main() -> int:
         return out
 
     for turn, name in enumerate(order):
-        for (label, wide), (q, t, qlen, tlen) in myers_cases.items():
+        for (label, wide), (q, t, qlen, tlen) in (myers_cases.items()
+                                                  if name not in nw_versions else ()):
             timed(name, "myers", (label, "new", q.shape[1], t.shape[1], wide),
                   lambda: myers._launch(libs[("myers", name)], q, t, qlen, tlen, wide))
-        all_kernels = name not in versions  # a Myers version: the Myers shapes only
+        # a Myers version: the Myers shapes only; a NW version: the SV shapes
+        all_kernels = name not in versions and name not in nw_versions
         for (bucket, shape), (q, t, qlen, tlen, dlo, M, N) in \
                 (cases.items() if all_kernels else ()):
             if bucket == "10 kb":
@@ -266,6 +293,9 @@ def main() -> int:
             if name == "this":
                 timed("this+dist", "nw", ("10 kb", "new", M, N, wide),
                       lambda: nw_launch(name, q, t, qlen, tlen, wide, True)[1:])
+        for wide in SV_BANDS if name not in versions else ():
+            timed(name, "nw-block", ("SV", "new", sv_M, sv_N, wide),
+                  lambda: nw_launch(name, *sv_in, wide))
         print(f"turn {turn + 1} ({name}) done; outputs {'equal' if ok else 'DIFFER'}", flush=True)
     # the distance output against its plain version (on the card) at the main
     # path's shape; the shape before gives the same distances
@@ -281,12 +311,14 @@ def main() -> int:
             + " ms (median of 5 launches a turn)")
     for shape in ("new", "old"):
         sums = {name: sum(np.mean(by_name[name]) for (k, key), by_name in times.items()
-                          if k == "tb" and key[1] == shape) for name in set(order) - set(versions)}
+                          if k == "tb" and key[1] == shape)
+                for name in set(order) - set(versions) - set(nw_versions)}
         print(f"traceback on both buckets' planes, {shape} shapes, turns averaged: "
               + ", ".join(f"{n} {v:.4f} ms" for n, v in sums.items()))
 
     # the debug builds' counters
     ctr = (ctypes.c_ulonglong * len(TB_STATS))()
+    nw_ctr = (ctypes.c_ulonglong * len(NW_STATS))()
     dbg_my, dbg_nw, dbg_tb = libs[("myers", "debug")], libs[("nw", "debug")], libs[("tb", "debug")]
     for name in ["debug"] + versions:
         for (label, wide), inputs in myers_cases.items():
@@ -303,13 +335,13 @@ def main() -> int:
                   f"(lane 0's clock, the mean over the {c['pairs']} alignments)")
     for shape in ("new", "old"):
         q, t, qlen, tlen, dlo, M, N = cases[("10 kb", shape)]
-        dbg_nw.banded_nw_stats(ctr, 1)
+        dbg_nw.banded_nw_stats(nw_ctr, 1)
         codes = nw._launch(dbg_nw, q, t, qlen, tlen, W)[0]
         torch.cuda.synchronize()
-        if dbg_nw.banded_nw_stats(ctr, 1) != 0:
+        if dbg_nw.banded_nw_stats(nw_ctr, 1) != 0:
             print("the NW debug build's counters could not be read")
             return 1
-        c = dict(zip(NW_STATS, (int(x) for x in ctr)))
+        c = dict(zip(NW_STATS, (int(x) for x in nw_ctr)))
         print(f"debug NW 10 kb M={M} N={N} W={W}: {c}; {c['cycles'] / c['rows']:.1f} cycles a "
               f"row (lane 0's clock, the mean over the {c['pairs']} warps)")
         for bucket in ("2 kb", "10 kb"):
@@ -325,6 +357,20 @@ def main() -> int:
                   f"({c['moves'] / c['steps']:.2f} moves a step); {c['cycles'] / c['steps']:.1f} "
                   f"cycles a step; {c['loads'] / c['walks']:.1f} tile loads waited for and "
                   f"{c['prefetched'] / c['walks']:.1f} prefetched rows a walk")
+    for name, wide in [(n, w) for n in ["debug"] + nw_debug for w in SV_BANDS]:
+        lib = libs[("nw", name)]
+        lib.banded_nw_stats(nw_ctr, 1)
+        nw._launch(lib, *sv_in, wide)
+        torch.cuda.synchronize()
+        lib.banded_nw_stats(nw_ctr, 1)
+        c = dict(zip(NW_STATS, (int(x) for x in nw_ctr)))
+        cols = lib.banded_nw_block_cols(wide)
+        steps = sv_M + 31 + 32 * (-(-wide // (32 * cols)) - 1)  # the block's global steps
+        print(f"{name} NW (block, {cols} columns a lane) SV M={sv_M} N={sv_N} W={wide}: {c}; "
+              f"{c['block_cycles'] / c['block_pairs'] / steps:.1f} cycles a step (thread 0's "
+              f"clock over {steps} steps, the mean over the {c['block_pairs']} blocks); a warp "
+              f"spends {c['block_wait'] / c['block_warps'] / steps:.1f} of them waiting for its "
+              f"neighbours' words")
     if args.scan:
         for wide in (W, 1024):
             for n in (1, 4, 128, 512):

@@ -1,5 +1,5 @@
-"""Old against new for the extender's X-drop extension kernel and the batched
-Myers distance kernel on one card.
+"""Old against new for the extender's X-drop extension and match-count
+kernels and the batched Myers distance kernel on one card.
 
     python3 experiments/torch_extender_check.py [--parent DIR]
         [--xdrop NAME=SOURCE[:MACRO~VALUE...]] ... [--myers NAME=SOURCE] ...
@@ -26,13 +26,18 @@ Myers distance kernel on one card.
    and over the others, and over the 10 Mbp genome against itself from a
    seed on the main diagonal; the Myers kernel over phase 5's 1,024 pairs of
    2 kb and over 128 pairs of 20 kb (queries of 625 words: two chunks).
+   The match-count kernel over the first batch's seeds that need the
+   entropy (total score in [3000, 9000], as the extender selects them).
    Each build in turns (parent, this, the versions, then the same in
    reverse), every
    launch timed with CUDA events (median of 5). Every build's outputs must
-   equal this build's, and this build's extension of the first 65,536 seeds
-   ``xdrop_extend_plain``'s on the card (``chip_smoke.py`` and the card tests
-   hold the Myers kernel to its plain version; its plain word chain is a
-   host loop over target positions and words, minutes at these shapes).
+   equal this build's, this build's extension of the first 65,536 seeds
+   ``xdrop_extend_plain``'s on the card, and its counts of the first 4,000
+   entropy seeds ``count_matches_plain``'s (``chip_smoke.py`` and the card
+   tests hold the Myers kernel to its plain version; its plain word chain is
+   a host loop over target positions and words, minutes at these shapes).
+   A version of the count kernel is a copy of the source (16 lanes a seed:
+   ``constexpr int COUNT_LANES = 16``).
 3. With ``--parent``: the extender's main path (phase 11b's seeds, the
    entropy on) and ``myers_edit_distance_batched`` over the 1,024 pairs,
    through the parent's kernels and this checkout's in turns (parent, this,
@@ -64,7 +69,10 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
 from genomeworks_tpu_torch.aligner.myers import myers_inputs  # noqa: E402
 from genomeworks_tpu_torch.extender import DEFAULT_SCORE_MATRIX  # noqa: E402
-from genomeworks_tpu_torch.extender.xdrop_plain import xdrop_extend_plain  # noqa: E402
+from genomeworks_tpu_torch.extender.xdrop_plain import (  # noqa: E402
+    count_matches_plain,
+    xdrop_extend_plain,
+)
 from genomeworks_tpu_torch.ops import _build  # noqa: E402
 from genomeworks_tpu_torch.ops import myers_score_cuda as ms  # noqa: E402
 from genomeworks_tpu_torch.ops import xdrop_cuda as xd  # noqa: E402
@@ -104,9 +112,23 @@ def xdrop_run(lib, qd, td, qp, tp, sd):
     return out
 
 
+def count_run(lib, qd, td, qp, tp, left, right):
+    out = torch.empty((qp.shape[0], 4), dtype=torch.int32, device=qd.device)
+    rc = lib.xdrop_count_launch(qd.data_ptr(), td.data_ptr(), qp.data_ptr(), tp.data_ptr(),
+                                left.data_ptr(), right.data_ptr(), out.data_ptr(), qp.shape[0],
+                                qd.numel(), td.numel(), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"xdrop_count_launch failed: CUDA error {rc}")
+    return out
+
+
+#: the wrapper's launch function (``walls`` swaps ``ms._launch`` for a build's)
+MS_LAUNCH = ms._launch
+
+
 def myers_run(lib, old, peq, tc, ql, tl):
     if not old:
-        return ms._launch(lib, peq, tc, ql, tl)
+        return MS_LAUNCH(lib, peq, tc, ql, tl)
     B, _, n_words = peq.shape
     out = torch.empty(B, dtype=torch.int32, device=peq.device)
     scratch = torch.empty((2, n_words, B), dtype=torch.int32, device=peq.device)
@@ -144,7 +166,7 @@ def walls(libs, old_myers, query, target, seeds, pairs):
             best = wall if best is None else min(best, wall)
         return best, out
 
-    this_launch = ms._launch
+    this_launch = MS_LAUNCH
     qs, ts = [p[0] for p in pairs], [p[1] for p in pairs]
     ref = None
     for name in ("parent", "this", "this", "parent"):
@@ -267,6 +289,17 @@ def main() -> int:
               f"seeds")
         return 1
     print(f"this build == xdrop_extend_plain on the first {n} seeds (on the card)")
+    total = ref[:, 0].to(torch.int64) + ref[:, 2]
+    nz = torch.nonzero((total >= chip_smoke.EXT_THRESHOLD)
+                       & (total <= 3 * chip_smoke.EXT_THRESHOLD)).squeeze(1)
+    cargs = (qd, td, qp[nz], tp[nz], ref[nz, 3].contiguous(), ref[nz, 1].contiguous())
+    this_counts = count_run(libs[("xdrop", "this")], *cargs)
+    sub = (qd, td, *(a[:4000] for a in cargs[2:]))
+    if not torch.equal(this_counts[:4000], count_matches_plain(*sub)):
+        print("FAIL: this build's counts differ from count_matches_plain")
+        return 1
+    print(f"counts: {len(nz)} seeds of the batch need the entropy; this build == "
+          f"count_matches_plain on the first 4000 (on the card)")
 
     prng = np.random.default_rng(2025)
     pairs = {"1024 x 2 kb": chip_smoke.random_pairs(prng, 1024, 2000, 0.04, 0.01, 0.01),
@@ -296,6 +329,12 @@ def main() -> int:
                 print(f"FAIL: xdrop ({name}) differs from this build on {label}")
                 return 1
             times.setdefault(("xdrop", label, name), []).append(ms_)
+        if ("xdrop", name) in libs and ("xdrop", name) not in debug:
+            ms_, out = median_ms(lambda: count_run(libs[("xdrop", name)], *cargs))
+            if not torch.equal(out, this_counts):
+                print(f"FAIL: xdrop_count ({name}) differs from this build")
+                return 1
+            times.setdefault(("count", "entropy seeds", name), []).append(ms_)
         if ("myers", name) in libs and ("myers", name) not in debug:
             for label, margs in myers_sets.items():
                 lib = libs[("myers", name)]

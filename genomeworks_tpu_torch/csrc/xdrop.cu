@@ -62,8 +62,19 @@
 // - The 64-entry score matrix sits in shared memory (entry 64 scores 0, for
 //   positions past the walk), loaded once a block.
 // - Both directions of a seed run in one warp, and a whole batch is one
-//   launch; the match counts of the seeds the entropy needs are a second
-//   kernel, a warp a seed, four ballots and popcounts a 32-position tile.
+//   launch.
+// - The match counts of the seeds the entropy needs are a second kernel,
+//   xdrop_count_kernel, bound by the bytes it reads (two a position) and the
+//   latency of its loads (a warp a seed, one byte a lane, took 17x its
+//   bound in 2-3 serial passes). 8 lanes a seed and 4 seeds a warp; the
+//   seed's range inside both sequences is found once, and each lane reads
+//   its K positions as aligned words (words_at and a funnel shift, as the
+//   extension does) where the seed's whole window lies in both sequences,
+//   else clamped bytes. Equal codes below 4 are found four at a time (a
+//   zero-byte test of (t ^ q) | (t & ~3)); the counts by base come from
+//   four popcounts of bit planes (all, bit 0, bit 1, both), summed over the
+//   seed's lanes by shuffles. A seed's segment of 30-100 positions is one
+//   or two passes of 64.
 //
 // Debug build (-DXDROP_STATS=1, off in normal builds): lane 0 of each warp
 // adds its seeds, tiles over both directions and clock64() cycles over the
@@ -82,6 +93,11 @@ constexpr int WARPS = 4;    // warps (seeds) a block
 constexpr int K = 8;
 constexpr int TILE = 32 * K;
 constexpr int KW = K / 4;  // 4-byte words of a lane's codes
+// the match counts: lanes a seed (a power of two up to 32), seeds a warp,
+// warps a block
+constexpr int COUNT_LANES = 8;
+constexpr int COUNT_SEEDS = 32 / COUNT_LANES;
+constexpr int COUNT_WARPS = 8;
 
 #ifdef XDROP_STATS
 enum { XS_SEEDS, XS_TILES, XS_CYCLES, XS_COUNT };
@@ -465,39 +481,86 @@ xdrop_extend_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ t
   (void)tiles;
 }
 
-__global__ void __launch_bounds__(WARPS * 32)
+// 0x80 in each byte of x that is zero, else 0 (exact for every byte value).
+__device__ __forceinline__ uint32_t zero_bytes(uint32_t x) {
+  return ~(((x & 0x7f7f7f7fu) + 0x7f7f7f7fu) | x | 0x7f7f7f7fu);
+}
+
+// COUNT_LANES lanes a seed, COUNT_SEEDS seeds a warp. Each lane counts K
+// positions of its seed's segment a pass (8 j .. 8 j + 7 of the pass, from
+// the first position inside both sequences), so a pass covers COUNT_LANES *
+// K positions; the counts are summed over the seed's lanes by shuffles.
+__global__ void __launch_bounds__(COUNT_WARPS * 32)
 xdrop_count_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ t,
                    const int* __restrict__ qpos, const int* __restrict__ tpos,
                    const int* __restrict__ left, const int* __restrict__ right,
                    int* __restrict__ counts, int n, int Lq, int Lt) {
-  const long long k = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (k >= n) return;
-  const int lane = threadIdx.x & 31;
-  const long long l = left[k];
-  const long long span = l + right[k];
-  const long long t0 = tpos[k] - l, q0 = qpos[k] - l;
-  int c0 = 0, c1 = 0, c2 = 0, c3 = 0;
-  for (long long base = 0; base <= span; base += 32) {
-    const long long o = base + lane;
-    const long long tp = t0 + o, qp = q0 + o;
-    const bool inb = o <= span && tp >= 0 && qp >= 0 && tp < Lt && qp < Lq;
-    int tc = 4, qc = 5;
-    if (inb) {
-      tc = t[tp];
-      qc = q[qp];
+  constexpr int PASS = COUNT_LANES * K;
+  const int lane = threadIdx.x & 31, part = lane % COUNT_LANES;
+  const long long k = ((long long)blockIdx.x * COUNT_WARPS + (threadIdx.x >> 5)) * COUNT_SEEDS +
+                      lane / COUNT_LANES;
+  // the positions o in [0, left + right] whose target t0 + o and query
+  // q0 + o both lie in their sequences: npos of them from tlo and qlo (a
+  // seed past n has none; its lanes stay for the shuffles)
+  int tlo = 0, qlo = 0, npos = 0;
+  if (k < n) {
+    const long long l = left[k];
+    const long long span = l + right[k];
+    const long long t0 = tpos[k] - l, q0 = qpos[k] - l;
+    const long long lo = max(0ll, max(-t0, -q0));
+    const long long hi = min(span, min((long long)Lt - 1 - t0, (long long)Lq - 1 - q0));
+    if (hi >= lo) {
+      tlo = (int)(t0 + lo);
+      qlo = (int)(q0 + lo);
+      npos = (int)(hi - lo + 1);
     }
-    const bool m = inb && tc == qc && tc < 4;
-    c0 += __popc(__ballot_sync(FULL, m && tc == 0));
-    c1 += __popc(__ballot_sync(FULL, m && tc == 1));
-    c2 += __popc(__ballot_sync(FULL, m && tc == 2));
-    c3 += __popc(__ballot_sync(FULL, m && tc == 3));
   }
-  if (lane == 0) {
+  const int passes = (npos + PASS - 1) / PASS;
+  // aligned words where the seed's whole window, with 3 bytes before it and
+  // 4 after, lies in both sequences (once a seed); else bytes, clamped
+  const bool words = tlo >= 3 && qlo >= 3 && (long long)tlo + (long long)passes * PASS + 4 <= Lt &&
+                     (long long)qlo + (long long)passes * PASS + 4 <= Lq;
+  // matched positions, and of them those whose code has bit 0, bit 1, both
+  int n_all = 0, n_b0 = 0, n_b1 = 0, n_11 = 0;
+  for (int p = 0; p < passes; ++p) {
+    const int x = p * PASS + part * K;
+    Bytes tw, qw;
+    if (words) {
+      tw = words_at(t + tlo + x);
+      qw = words_at(q + qlo + x);
+    } else {
+      tw = bytes_clamped(t, Lt, tlo + x);
+      qw = bytes_clamped(q, Lq, qlo + x);
+    }
+    const int valid = min(npos - x, K);  // positions of this lane inside the segment
+#pragma unroll
+    for (int h = 0; h < KW; ++h) {
+      const uint32_t a = __funnelshift_r(tw.w[h], tw.w[h + 1], 8 * tw.sh);
+      const uint32_t b = __funnelshift_r(qw.w[h], qw.w[h + 1], 8 * qw.sh);
+      const int vb = valid - 4 * h;  // bytes of this word inside
+      const uint32_t vmask = vb >= 4 ? 0x01010101u : vb <= 0 ? 0u : 0x01010101u >> (32 - 8 * vb);
+      // equal codes below 4: (a ^ b) | (a & ~3) is a zero byte
+      const uint32_t m = (zero_bytes((a ^ b) | (a & 0xfcfcfcfcu)) >> 7) & vmask;
+      const uint32_t b0 = a & m, b1 = (a >> 1) & m;
+      n_all += __popc(m);
+      n_b0 += __popc(b0);
+      n_b1 += __popc(b1);
+      n_11 += __popc(b0 & b1);
+    }
+  }
+#pragma unroll
+  for (int d = COUNT_LANES / 2; d > 0; d >>= 1) {
+    n_all += __shfl_xor_sync(FULL, n_all, d);
+    n_b0 += __shfl_xor_sync(FULL, n_b0, d);
+    n_b1 += __shfl_xor_sync(FULL, n_b1, d);
+    n_11 += __shfl_xor_sync(FULL, n_11, d);
+  }
+  if (part == 0 && k < n) {
     int4 c;
-    c.x = c0;
-    c.y = c1;
-    c.z = c2;
-    c.w = c3;
+    c.x = n_all - n_b0 - n_b1 + n_11;
+    c.y = n_b0 - n_11;
+    c.z = n_b1 - n_11;
+    c.w = n_11;
     reinterpret_cast<int4*>(counts)[k] = c;
   }
 }
@@ -544,8 +607,9 @@ int xdrop_count_launch(const void* q, const void* t, const void* qpos, const voi
                        const void* left, const void* right, void* counts, int n, int Lq,
                        int Lt, void* stream) {
   if (n > 0) {
-    const long long blocks = ((long long)n + WARPS - 1) / WARPS;
-    xdrop_count_kernel<<<(unsigned)blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(
+    constexpr int per_block = COUNT_WARPS * COUNT_SEEDS;
+    const long long blocks = ((long long)n + per_block - 1) / per_block;
+    xdrop_count_kernel<<<(unsigned)blocks, COUNT_WARPS * 32, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)q, (const uint8_t*)t, (const int*)qpos, (const int*)tpos,
         (const int*)left, (const int*)right, (int*)counts, n, Lq, Lt);
   }

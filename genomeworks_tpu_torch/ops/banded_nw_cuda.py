@@ -2,8 +2,9 @@
 counterpart of genomeworks_tpu/ops/banded_nw_pallas.py
 (``banded_nw_forward_pallas``): one warp per alignment for bands up to
 the library's ``banded_nw_warp_max_band()`` (``banded_nw_warp_kernel``),
-one thread block per alignment past it (``banded_nw_kernel``), chosen by
-the launcher.
+one thread block per alignment past it (``banded_nw_kernel``: up to 32
+warps, ``banded_nw_block_cols(W)`` band columns a lane), chosen by the
+launcher.
 
 The kernel source is ``csrc/banded_nw.cu``; its plain PyTorch version is
 ``aligner/banded_nw.banded_nw_forward_plain``, and with the distance output
@@ -25,9 +26,9 @@ from genomeworks_tpu_torch.ops import _build
 from genomeworks_tpu_torch.ops._pairs import check_pairs
 
 SOURCE = "banded_nw.cu"
-#: the widest band the kernel takes (csrc/banded_nw.cu: MAX_THREADS threads
-#: of at most 32 columns)
-MAX_BAND = 512 * 32
+#: the widest band the kernel takes (csrc/banded_nw.cu: the block kernel's
+#: 16 warps of 32 lanes of 32 columns past band 8192)
+MAX_BAND = 16 * 32 * 32
 
 _lib = None
 
@@ -38,6 +39,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.banded_nw_launch.restype = ctypes.c_int
     lib.banded_nw_warp_max_band.argtypes = []
     lib.banded_nw_warp_max_band.restype = ctypes.c_int
+    lib.banded_nw_block_cols.argtypes = [ctypes.c_int]
+    lib.banded_nw_block_cols.restype = ctypes.c_int
     lib.banded_nw_stats.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
     lib.banded_nw_stats.restype = ctypes.c_int
     return lib

@@ -1,7 +1,8 @@
-"""CUDA kernels of the ungapped X-drop extender, a warp per seed: the
-extension of both directions of a batch of seeds in one launch (a lane
-scores ``LANE_POSITIONS`` consecutive positions of a tile), and the A/C/G/T
-match counts of the final segments that the entropy reads.
+"""CUDA kernels of the ungapped X-drop extender: the extension of both
+directions of a batch of seeds in one launch, a warp a seed (a lane scores
+``LANE_POSITIONS`` consecutive positions of a tile), and the A/C/G/T match
+counts of the final segments that the entropy reads (``COUNT_LANES`` lanes
+a seed, four seeds a warp).
 
 They replace no TPU kernel: the JAX package runs the extension as XLA ops
 (genomeworks_tpu/extender/xdrop.py, ``_extend_direction`` and
@@ -23,6 +24,9 @@ SOURCE = "xdrop.cu"
 #: positions a lane scores a tile of xdrop_extend_kernel (the source's
 #: ``constexpr int K``): a tile is 32 of them
 LANE_POSITIONS = 8
+#: lanes a seed of xdrop_count_kernel (the source's ``constexpr int
+#: COUNT_LANES``), each counting LANE_POSITIONS positions a pass
+COUNT_LANES = 8
 
 _lib = None
 

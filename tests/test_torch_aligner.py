@@ -40,6 +40,7 @@ from genomeworks_tpu_torch.aligner import cpu_reference as tref
 from genomeworks_tpu_torch.aligner import types as ttypes
 from genomeworks_tpu_torch.aligner.banded_nw import (
     band_offset,
+    banded_nw_final_plain,
     banded_nw_forward_plain,
     planes_from_numpy,
     planes_to_numpy,
@@ -153,6 +154,36 @@ def test_banded_nw_plain_equals_jax_scan(W):
     np.testing.assert_array_equal(planes_to_numpy(planes), _pack(np.asarray(codes)))
     np.testing.assert_array_equal(fits_t.numpy(), np.asarray(fits))
     assert not fits_t[-1]
+
+
+@pytest.mark.parametrize("W", [640, 1024])
+def test_banded_nw_block_bands_equal_jax_scan(W):
+    """The plain versions at the block kernel's bands (past 512) against the
+    JAX scan, codes, fits and the distance: pairs whose targets are longer
+    than their queries by W - 3 and W - 40 (the optimum drifts to the band's
+    edge), empty targets, pairs that do not fit (a difference of W and
+    of W + 20), an empty query and noisy pairs, at M = 90 rows (not a
+    multiple of 16; rows past most queries)."""
+    rng = np.random.default_rng(W)
+    M, N = 90, W + 40
+    lens = [(60, 60 + W - 3), (80, 80 + W - 40), (90, 0), (10, 10 + W), (15, 35 + W),
+            (0, 50), (70, 66), (85, 90), (40, 0)]
+    B = len(lens)
+    q = rng.integers(0, 4, (B, M)).astype(np.uint8)
+    t = rng.integers(0, 4, (B, N)).astype(np.uint8)
+    qlen = np.array([a for a, _ in lens], np.int32)
+    tlen = np.array([b for _, b in lens], np.int32)
+    for b in (0, 1, 6, 7):  # the target starts with the query, noisy
+        n = min(qlen[b], tlen[b])
+        t[b, :n] = np.where(rng.random(n) < 0.1, rng.integers(0, 4, n), q[b, :n])
+    want = jnw.banded_nw_forward(*map(jnp.asarray, (q, t, qlen, tlen)), W)
+    final, planes, fits = banded_nw_final_plain(*_t(q, t, qlen, tlen), W)
+    fplanes, ffits = banded_nw_forward_plain(*_t(q, t, qlen, tlen), W)
+    np.testing.assert_array_equal(planes_to_numpy(planes), _pack(np.asarray(want[1])))
+    np.testing.assert_array_equal(fits.numpy(), np.asarray(want[2]))
+    np.testing.assert_array_equal(final.numpy(), np.asarray(want[0]))
+    assert torch.equal(fplanes, planes) and torch.equal(ffits, fits)
+    assert fits.tolist() == [True, True, True, False, False, True, True, True, True]
 
 
 def test_planes_round_trip_and_checks():

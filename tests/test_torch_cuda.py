@@ -460,9 +460,11 @@ def _pairs(B, M, seed, rate):
     return [torch.from_numpy(a).cuda() for a in (q, t, qlen, tlen)]
 
 
+BLOCK_NW_SETS = ["block-640", "block-1024", "block-2048", "block-4096", "block-8192",
+                 "block-16384"]
 ALIGNER_EDGE_SETS = ["bands", "widest", "w16384", "identical", "diagonal-ends", "qlen16",
                      "long-indels", "drift", "empty", "rcap", "dense-10kb", "myers-layouts",
-                     "myers-rows", "myers-narrow", "myers-unfit", "myers-w32768"]
+                     "myers-rows", "myers-narrow", "myers-unfit", "myers-w32768", *BLOCK_NW_SETS]
 
 
 @pytest.mark.cuda
@@ -480,7 +482,10 @@ def test_aligner_kernels_match_plain_on_gpu(case):
     pairs; and the Myers kernel's layouts (the bands where its words a lane
     change, qlen across the window's first moves and its 8-row groups, a
     window wider than the target's words, pairs that do not fit, W =
-    32768); each must reach what it names."""
+    32768); and the block NW's (each band from 640 to 16384 with one that
+    is not a multiple of a warp's columns: walks across warp boundaries and
+    in the last warp, along the band's edge, pairs that do not fit, qlen 0,
+    M not a multiple of 16); each must reach what it names."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card and nvcc")
     if isinstance(case, str):
@@ -697,6 +702,56 @@ def test_xdrop_kernels_match_plain_on_gpu(case):
     assert want <= chip_smoke.xdrop_facts(q, t, seeds, sub, xd, p.cpu().numpy())
 
 
+COUNT_SETS = ["word ends", "sequence ends", "spans", "waves"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", COUNT_SETS)
+def test_xdrop_count_sets_match_plain_on_gpu(case):
+    """The match-count kernel against ``count_matches_plain`` on its own
+    sets (``chip_smoke.xdrop_count_sets``: crafted extents, sequences as
+    views at odd and even offsets, lengths not multiples of 4, segments
+    that end at every byte of a word and cross position 0 and the ends,
+    spans 0, -1 and over 1,000, codes 4-7, 50,000 seeds), each of which
+    must reach what it names (``chip_smoke.count_facts``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc")
+    import chip_smoke
+    from genomeworks_tpu_torch.ops.xdrop_cuda import xdrop_count_cuda
+
+    spec = chip_smoke.xdrop_count_sets(np.random.default_rng(15))[case]
+    launches = xdrop_count_cuda.launches
+    facts = chip_smoke.count_compare(spec, torch.device("cuda"))
+    assert xdrop_count_cuda.launches == launches + 1
+    assert spec["want"] <= facts, sorted(spec["want"] - facts)
+
+
+@pytest.mark.cuda
+def test_block_nw_runs_the_sv_pairs_on_gpu():
+    """create_aligner(max_bandwidth=1024, device="cuda") on 32 pairs of 10
+    kb whose targets lack 600-900 bases (``chip_smoke.sv_pairs``): every
+    pair at band 1024 in one launch of the block NW, no plain call; the
+    first eight optimal paths equal align_cpu's (``chip_smoke.align_rows``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc")
+    import chip_smoke
+
+    sv = chip_smoke.sv_pairs(np.random.default_rng(15))
+    launches, calls = banded_nw_cuda.launches, banded_nw_forward_plain.calls
+    a = create_aligner(max_bandwidth=1024, device="cuda")
+    for qs, ts in sv:
+        assert a.add_alignment(qs, ts) == 0
+    a.align_all()
+    torch.cuda.synchronize()
+    assert dict(a.band_counts) == {1024: len(sv)}
+    assert banded_nw_cuda.launches == launches + 1 and banded_nw_forward_plain.calls == calls
+    alns = a.get_alignments()
+    optimal = [b for b, aln in enumerate(alns) if aln.is_optimal][:8]
+    assert optimal
+    for b in optimal:
+        np.testing.assert_array_equal(alns[b].states, chip_smoke.align_rows(*sv[b]))
+
+
 MYERS_SCORE_SETS = ["word edges", *(f"npl {k}" for k in range(1, 17)), "chunked",
                     "3-4 chunks", "1024 x 2 kb"]
 
@@ -772,7 +827,7 @@ def test_create_extender_without_a_card_raises(monkeypatch):
 
 NW_DIST_SETS = [32, 1024, "bands", "widest", "w16384", "identical", "diagonal-ends", "qlen16",
                 "long-indels", "drift", "empty", "rcap", "dense-10kb", "myers-rows",
-                "myers-narrow", "myers-unfit"]
+                "myers-narrow", "myers-unfit", *BLOCK_NW_SETS]
 
 
 @pytest.mark.cuda
@@ -795,14 +850,11 @@ def test_nw_dist_output_matches_plain_on_gpu(case):
         runs = [(_pairs(B=24, M=256, seed=case, rate=0.12), case)]
     else:
         import chip_smoke
-        from genomeworks_tpu_torch.aligner.aligner import pack_pairs, pack_shape
-        from genomeworks_tpu_torch.core.bucketing import next_pow2
 
         warp_max = nw.load_library().banded_nw_warp_max_band()
         spec = chip_smoke.aligner_edge_sets(np.random.default_rng(8), warp_max)[case]
         assert "banded_nw_cuda" in spec["forwards"]
-        s = next_pow2(max(len(x) for pair in spec["pairs"] for x in pair))
-        inputs = pack_pairs(spec["pairs"], *pack_shape(spec["pairs"], s), torch.device("cuda"))
+        inputs = chip_smoke.edge_pack(spec, torch.device("cuda"))
         runs = [(inputs, W) for W in spec["bands"]]
     for (q, t, qlen, tlen), W in runs:
         launches = nw.banded_nw_cuda.launches

@@ -2,7 +2,8 @@
 package's (genomeworks_tpu.extender) on the CPU: the encoding, each
 direction's (score, position) against ``_extend_direction`` at plain widths
 32, 128 and 256 and on the edge sets of the card kernel's lanes and tiles,
-the match counts against ``_count_matches``, the sort and
+the match counts against ``_count_matches`` (also on the count kernel's
+edge sets), the sort and
 deduplication against ``_sort_and_dedup``, whole SSP lists of
 ``create_extender(device="cpu")`` under each setting, tensor inputs, the CSV
 parsers and the sample. Every comparison is exact; inputs are simulated
@@ -135,6 +136,30 @@ def test_count_matches_matches_jax(pair):
         torch.from_numpy(seeds[:, 1].astype(np.int32)), torch.from_numpy(left),
         torch.from_numpy(right), 32)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.fixture(scope="module")
+def count_sets():
+    return chip_smoke.xdrop_count_sets(np.random.default_rng(15))
+
+
+@pytest.mark.parametrize("case", ["word ends", "sequence ends", "spans", "waves"])
+def test_count_sets_match_jax(count_sets, case):
+    """The match-count kernel's edge sets (``chip_smoke.xdrop_count_sets``:
+    crafted extents whose segments end at every byte of a word, cross
+    position 0 and the sequences' ends, spans 0, -1 and over 1,000, codes
+    4-7, 50,000 seeds): ``count_matches_plain`` against ``_count_matches``."""
+    spec = count_sets[case]
+    seeds, left, right = spec["seeds"], spec["left"], spec["right"]
+    want = jx._count_matches(jnp.asarray(spec["q"], jnp.int32), jnp.asarray(spec["t"], jnp.int32),
+                             jnp.asarray(seeds[:, 0]), jnp.asarray(seeds[:, 1]),
+                             jnp.asarray(left), jnp.asarray(right),
+                             int(max(0, (left.astype(np.int64) + right).max())))
+    got = xdrop_plain.count_matches_plain(
+        *(torch.from_numpy(np.ascontiguousarray(a)) for a in
+          (spec["q"], spec["t"], seeds[:, 0], seeds[:, 1], left, right)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got.sum() > 0
 
 
 def _crafted_ssps():
